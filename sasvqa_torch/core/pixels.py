@@ -1,0 +1,50 @@
+"""uint8 wire format for normalized pixel staging.
+
+Counterpart of sasvqa_tpu/core/pixels.py.  Frame stores hold
+CLIP-normalized floats ``x = (u/255 - mean_c) / std_c`` of uint8 frames
+``u``; :func:`quantize_u8` inverts that affine on the host and
+:func:`dequantize` re-applies it on the device in the same f32 op order
+(u8 -> f32, /255, -mean, /std), so on-grid frames come back bit-equal.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+CLIP_MEAN = np.array([0.48145466, 0.4578275, 0.40821073], np.float32)
+CLIP_STD = np.array([0.26862954, 0.26130258, 0.27577711], np.float32)
+
+# quantize: u = rint(x * 255*std + 255*mean), the exact inverse of the
+# store's (u/255 - mean)/std
+_Q_SCALE = (255.0 * CLIP_STD).astype(np.float32)
+_Q_BIAS = (255.0 * CLIP_MEAN).astype(np.float32)
+
+
+def quantize_u8(frames: np.ndarray) -> np.ndarray:
+    """Normalized float frames ``(..., 3)`` -> uint8 wire format.
+
+    Exact on the uint8 grid; off-grid values round to the nearest grid
+    point and out-of-range values clip to [0, 255]."""
+    q = frames * _Q_SCALE + _Q_BIAS
+    np.rint(q, out=q)
+    np.clip(q, 0.0, 255.0, out=q)
+    return q.astype(np.uint8)
+
+
+def dequantize(pixel_values: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """uint8 wire frames -> normalized pixels in ``dtype``, computed in
+    f32 in the store's op order before the final cast."""
+    dev = pixel_values.device
+    x = pixel_values.to(torch.float32) / np.float32(255.0)
+    x = (x - torch.from_numpy(CLIP_MEAN).to(dev)) \
+        / torch.from_numpy(CLIP_STD).to(dev)
+    return x.to(dtype)
+
+
+def maybe_dequantize(pixel_values: torch.Tensor,
+                     dtype: torch.dtype) -> torch.Tensor:
+    """Dequantize u8-staged pixels; float pixels pass through unchanged."""
+    if pixel_values.dtype == torch.uint8:
+        return dequantize(pixel_values, dtype)
+    return pixel_values

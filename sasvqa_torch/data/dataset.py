@@ -1,0 +1,176 @@
+"""GIT batch collator (counterpart of sasvqa_tpu/data/dataset.py).
+
+Text pads to a fixed ``max_txt_len``; frames are re-sampled on the host
+by sampling/policies.py into a static (B_groups, T, H, W, C) array.
+Pixel staging dtypes: ``"f32"`` and ``"u8"`` (core/pixels.py).  The JAX
+package's ``"bf16"`` host staging needs ``ml_dtypes`` and is not ported.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional, Sequence
+
+import numpy as np
+
+from sasvqa_torch.core.logging import LOGGER
+from sasvqa_torch.core.pixels import quantize_u8
+from sasvqa_torch.sampling import policies
+
+IGNORE_INDEX = -100
+
+PIXEL_DTYPES = {"f32": np.float32, "u8": np.uint8}
+
+
+def _pixel_dtype(name: str):
+    if name == "bf16":
+        raise NotImplementedError(
+            "bf16 host pixel staging needs ml_dtypes and is not ported; "
+            "use 'f32' or 'u8'")
+    if name not in PIXEL_DTYPES:
+        raise ValueError(f"unknown pixel_dtype {name!r}")
+    return PIXEL_DTYPES[name]
+
+
+def _resample_frames(items: List[Dict[str, Any]], policy: str, nframe: int,
+                     rng: Optional[np.random.Generator],
+                     out_dtype=np.float32) -> np.ndarray:
+    """(B_groups stored frames) -> (B_groups, T_out, H, W, C).
+
+    Selects indices first, then copies only the selected frames once into
+    a preallocated output in the staging dtype."""
+    b = len(items)
+    k = items[0]["vid"].shape[0]
+    sampled_inds = None
+    if policy == "question-caption":
+        missing = [i for i, d in enumerate(items)
+                   if d.get("sampled_inds") is None]
+        if missing:
+            raise ValueError(
+                "samp_policy='question-caption' (MIF) needs per-question "
+                f"'sampled_inds' but {len(missing)} of {len(items)} "
+                "groups lack them")
+        sampled_inds = np.stack(
+            [np.asarray(d["sampled_inds"]) for d in items])
+    inds = policies.sample_indices(policy, k, nframe, rng=rng,
+                                   sampled_inds=sampled_inds, batch_size=b)
+    frame_shape = items[0]["vid"].shape[1:]
+    out = np.empty((b, inds.shape[1]) + frame_shape, dtype=out_dtype)
+    if out_dtype == np.uint8:
+        # u8 wire format: invert the store's normalize affine (a plain
+        # cast-assign would truncate floats)
+        for i, d in enumerate(items):
+            out[i] = quantize_u8(d["vid"][inds[i]])
+    else:
+        for i, d in enumerate(items):
+            out[i] = d["vid"][inds[i]]
+    return out
+
+
+def _flatten_examples(items: List[Dict[str, Any]]):
+    examples = [e for d in items for e in d["examples"]]
+    n_examples = [d["n_examples"] for d in items]
+    return examples, n_examples
+
+
+def _check_uniform_groups(n_examples: Sequence[int]) -> None:
+    """Groups must be uniformly sized so the model can infer the
+    video->example repeat factor from shapes."""
+    if len(set(n_examples)) > 1:
+        raise ValueError(
+            f"non-uniform group sizes {sorted(set(n_examples))}; "
+            "mk_input_group with pad_to_divisible produces uniform groups")
+
+
+class GITCollator:
+    """GIT generative batches.
+
+    Train (add_ans=True): input = [CLS] q + answer + [SEP], labels mask
+    the question prefix to -100 (padding positions stay supervised unless
+    ``mask_pad_labels=True``, as in the reference).
+    Eval: prompt = [CLS] q (no trailing SEP), right-padded with
+    per-example lengths.
+    """
+
+    def __init__(self, tokenizer, max_txt_len: int = 20,
+                 max_seq_len: int = 32, task_type: str = "msvd_qa",
+                 nframe: int = 4, samp_policy: str = "random",
+                 add_ans: bool = True, mask_pad_labels: bool = False,
+                 pixel_dtype: str = "f32"):
+        self.tokenizer = tokenizer
+        self.max_txt_len = max_txt_len
+        self.max_seq_len = max_seq_len
+        self.task_type = task_type
+        self.nframe = nframe
+        self.samp_policy = samp_policy
+        self.add_ans = add_ans
+        self.mask_pad_labels = mask_pad_labels
+        self.pixel_dtype = _pixel_dtype(pixel_dtype)
+        # truncation accounting: the fixed max_seq_len bucket can clip
+        # the answer off, so count it and warn
+        self.n_truncated = 0
+        self.n_answer_lost = 0
+
+    def __call__(self, items: List[Dict[str, Any]],
+                 rng: Optional[np.random.Generator] = None,
+                 ) -> Dict[str, Any]:
+        visual = _resample_frames(items, self.samp_policy, self.nframe,
+                                  rng, out_dtype=self.pixel_dtype)
+        examples, n_examples = _flatten_examples(items)
+        _check_uniform_groups(n_examples)
+        tok = self.tokenizer
+        b = len(examples)
+
+        if self.add_ans:  # training: [CLS] q ans [SEP]
+            l = self.max_seq_len
+            ids = np.full((b, l), tok.pad_token_id, dtype=np.int32)
+            mask = np.zeros((b, l), dtype=np.int32)
+            labels = np.full((b, l), tok.pad_token_id, dtype=np.int32)
+            for i, d in enumerate(examples):
+                q_ids = [tok.cls_token_id] + tok.encode(
+                    d["q_str"], add_special_tokens=False)
+                a_ids = tok.encode(str(d["str_label"]),
+                                   add_special_tokens=False)
+                full = q_ids + a_ids + [tok.sep_token_id]
+                seq = full[:l]
+                if len(full) > l:
+                    self.n_truncated += 1
+                    if len(q_ids) >= l:
+                        self.n_answer_lost += 1
+                    if self.n_truncated in (1, 10, 100) \
+                            or self.n_truncated % 1000 == 0:
+                        LOGGER.warning(
+                            f"GIT collator truncated {self.n_truncated} "
+                            f"train sequences to max_seq_len={l} "
+                            f"({self.n_answer_lost} lost ALL answer "
+                            f"supervision) — raise --max_seq_len")
+                ids[i, :len(seq)] = seq
+                mask[i, :len(seq)] = 1
+                lab = np.array(ids[i])
+                lab[:min(len(q_ids), l)] = IGNORE_INDEX
+                if self.mask_pad_labels:
+                    lab[len(seq):] = IGNORE_INDEX
+                labels[i] = lab
+            return dict(
+                visual_inputs=visual,
+                text_input_ids=ids, text_attention_mask=mask,
+                labels=labels,
+                question_ids=[d["question_id"] for d in examples],
+                n_examples_list=n_examples,
+            )
+
+        # eval: [CLS] q, right-padded + explicit lengths
+        l = self.max_txt_len
+        ids = np.full((b, l), tok.pad_token_id, dtype=np.int32)
+        prompt_len = np.zeros((b,), dtype=np.int32)
+        for i, d in enumerate(examples):
+            seq = ([tok.cls_token_id]
+                   + tok.encode(d["q_str"], add_special_tokens=False))[:l]
+            ids[i, :len(seq)] = seq
+            prompt_len[i] = len(seq)
+        return dict(
+            visual_inputs=visual,
+            text_input_ids=ids, prompt_len=prompt_len,
+            labels=None,
+            question_ids=[d["question_id"] for d in examples],
+            n_examples_list=n_examples,
+        )

@@ -1,0 +1,234 @@
+"""Batched online inference (counterpart of sasvqa_tpu/tasks/serve.py).
+
+A micro-batching engine that turns concurrent single (video, question)
+requests into fixed-shape batches:
+
+- requests enqueue from any thread via :meth:`QAEngine.submit`, which
+  returns a ``concurrent.futures.Future``;
+- one dispatcher thread drains up to ``batch_size`` requests (after the
+  first arrives it lingers ``linger_ms`` for more);
+- the batch goes through ``GITCollator(add_ans=False)``, short batches
+  padded by repeating the last request, so every call has one shape;
+- the GIT model decodes greedily and answers with the generated text
+  (label = last word via ans2label).
+
+The JSONL CLI front of the JAX package decodes videos through stage A,
+which is not ported yet; :func:`serve_requests` is its request loop.
+"""
+
+from __future__ import annotations
+
+import json
+import queue
+import threading
+import time
+from concurrent.futures import Future
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from sasvqa_torch.core.device import DeviceLike, resolve_device
+from sasvqa_torch.core.logging import LOGGER
+from sasvqa_torch.data.dataset import GITCollator
+from sasvqa_torch.tasks.run_video_qa import decode_answers
+from sasvqa_torch.train.steps import make_git_eval_step
+
+
+class QAEngine:
+    """Micro-batching video-QA inference engine over a GIT model.
+
+    model: a built model (presets.build_model) on ``device``.  family:
+    'git' (the classifier families are not ported yet).  ans2label:
+    optional answer vocabulary for the last-word label.  nframe /
+    samp_policy: the collator's frame re-sampling.  The dispatcher thread
+    runs every batch under ``torch.inference_mode()`` on that thread's
+    current CUDA stream.
+    """
+
+    def __init__(self, model, family: str, tokenizer,
+                 ans2label: Optional[Dict[str, int]] = None,
+                 nframe: int = 4, samp_policy: str = "uniform",
+                 batch_size: int = 8, linger_ms: float = 5.0,
+                 max_txt_len: int = 20, max_text_len: int = 50,
+                 pixel_dtype: str = "f32", device: DeviceLike = "cuda"):
+        if family != "git":
+            raise NotImplementedError(
+                f"serving the {family!r} family is not ported yet")
+        self.device = resolve_device(device)
+        self.family = family
+        self.tokenizer = tokenizer
+        self.ans2label = ans2label or {}
+        self.batch_size = int(batch_size)
+        self.linger_s = float(linger_ms) / 1e3
+        self._collator = GITCollator(
+            tokenizer, max_txt_len=max_txt_len, task_type="msvd_qa",
+            nframe=nframe, samp_policy=samp_policy, add_ans=False,
+            pixel_dtype=pixel_dtype)
+        self._eval_step = make_git_eval_step(
+            model, max_text_len=max_text_len, device=self.device)
+
+        self.stats = {"requests": 0, "batches": 0, "batch_rows": 0}
+        self._queue: "queue.Queue" = queue.Queue()
+        self._closed = False
+        # submit()/close() handshake: without it a request that passes the
+        # _closed check while close() runs would sit behind the shutdown
+        # sentinel with a future that never resolves
+        self._lock = threading.Lock()
+        # co-batched requests share one collator pass whose frame indices
+        # and H/W come from the batch's first item, so the engine pins
+        # (K, H, W, 3) to the first submitted shape
+        self._frame_shape: Optional[tuple] = None
+        self._thread = threading.Thread(target=self._dispatch_loop,
+                                        daemon=True, name="qa-engine")
+        self._thread.start()
+
+    # ------------------------------------------------------------------
+    def submit(self, frames: np.ndarray, question: str) -> Future:
+        """frames: (K, H, W, 3) normalized floats (frame-store layout).
+        All requests to one engine share one (K, H, W, 3) shape; the
+        first submit pins it.  Returns a Future resolving to
+        {"answer": str, "label": int}."""
+        frames = np.asarray(frames)
+        if frames.ndim != 4 or frames.shape[-1] != 3:
+            raise ValueError(f"frames must be (K, H, W, 3), "
+                             f"got {frames.shape}")
+        with self._lock:
+            if self._closed:
+                raise RuntimeError("engine is closed")
+            if self._frame_shape is None:
+                self._frame_shape = frames.shape
+            elif frames.shape != self._frame_shape:
+                raise ValueError(
+                    f"frames shape {frames.shape} does not match this "
+                    f"engine's pinned shape {self._frame_shape}; requests "
+                    "in one engine must share (stored K, H, W, 3)")
+            fut: Future = Future()
+            self._queue.put((frames, str(question), fut))
+        return fut
+
+    def answer(self, frames: np.ndarray, question: str,
+               timeout: Optional[float] = None) -> Dict[str, Any]:
+        """Blocking convenience wrapper around :meth:`submit`."""
+        return self.submit(frames, question).result(timeout=timeout)
+
+    def close(self):
+        """Drain outstanding requests, then stop the dispatcher."""
+        with self._lock:
+            if self._closed:
+                return
+            self._closed = True
+            self._queue.put(None)
+        self._thread.join()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+    # ------------------------------------------------------------------
+    def _drain_batch(self) -> Optional[List[tuple]]:
+        """Block for one request, then linger for more (up to
+        batch_size).  None = shutdown sentinel seen."""
+        first = self._queue.get()
+        if first is None:
+            return None
+        reqs = [first]
+        deadline = time.monotonic() + self.linger_s
+        while len(reqs) < self.batch_size:
+            remaining = deadline - time.monotonic()
+            if remaining <= 0:
+                break
+            try:
+                nxt = self._queue.get(timeout=remaining)
+            except queue.Empty:
+                break
+            if nxt is None:
+                # keep shutting down after this batch completes
+                self._queue.put(None)
+                break
+            reqs.append(nxt)
+        return reqs
+
+    def _dispatch_loop(self):
+        # grad mode is thread-local: the caller's no_grad does not reach
+        # this thread, so it enters inference mode itself
+        with torch.inference_mode():
+            while True:
+                reqs = self._drain_batch()
+                if reqs is None:
+                    self._fail_stragglers()
+                    return
+                try:
+                    results = self._run_batch(reqs)
+                    for (_, _, fut), res in zip(reqs, results):
+                        fut.set_result(res)
+                except Exception as e:  # resolve futures, keep serving
+                    LOGGER.exception("serving batch failed")
+                    for _, _, fut in reqs:
+                        if not fut.done():
+                            fut.set_exception(e)
+
+    def _fail_stragglers(self):
+        """Requests still queued after the shutdown sentinel can never
+        run: fail their futures instead of leaving callers blocked."""
+        while True:
+            try:
+                leftover = self._queue.get_nowait()
+            except queue.Empty:
+                return
+            if leftover is not None:
+                leftover[2].set_exception(
+                    RuntimeError("engine closed before this request was "
+                                 "dispatched"))
+
+    def _run_batch(self, reqs: List[tuple]) -> List[Dict[str, Any]]:
+        n_real = len(reqs)
+        items = [{"vid": frames,
+                  "examples": [{"q_str": question, "label": None,
+                                "str_label": None, "question_id": i}],
+                  "n_examples": 1}
+                 for i, (frames, question, _) in enumerate(reqs)]
+        # fixed batch shape: repeat the last request into the tail
+        items += [items[-1]] * (self.batch_size - n_real)
+        batch = self._collator(items, rng=np.random.default_rng(0))
+        generated = self._eval_step(batch).cpu().numpy()
+        preds, strs = decode_answers(self.tokenizer, generated[:n_real],
+                                     self.ans2label)
+        out = [{"answer": s, "label": p} for s, p in zip(strs, preds)]
+        self.stats["requests"] += n_real
+        self.stats["batches"] += 1
+        self.stats["batch_rows"] += self.batch_size
+        return out
+
+
+def serve_requests(engine, requests, decode, out, *, batch_size: int,
+                   decode_workers: int = 4) -> None:
+    """Bounded decode-ahead request loop.
+
+    A decode thread pool keeps submission bursty enough to fill engine
+    batches, while a sliding in-flight window caps memory at O(window)
+    decoded clips.  Answers are written to ``out`` in request order."""
+    from collections import deque
+    from concurrent.futures import ThreadPoolExecutor
+
+    window = max(4 * batch_size, 2 * decode_workers)
+    with ThreadPoolExecutor(decode_workers) as pool:
+        def decode_and_submit(req):
+            return engine.submit(decode(req), req["question"])
+
+        pending: deque = deque()
+
+        def drain_one():
+            req, dfut = pending.popleft()
+            res = dfut.result().result()   # decode future -> answer
+            out.write(json.dumps({"question": req["question"],
+                                  **res}) + "\n")
+
+        for req in requests:
+            pending.append((req, pool.submit(decode_and_submit, req)))
+            if len(pending) >= window:
+                drain_one()
+        while pending:
+            drain_one()

@@ -1,0 +1,125 @@
+"""The port stands alone: no JAX, Flax, Optax, ml_dtypes, h5py or
+sasvqa_tpu imports; nothing runs on the CPU unless asked; CPU tensors
+never reach the kernel."""
+
+import ast
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(REPO, "sasvqa_torch")
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "ml_dtypes", "h5py",
+             "sasvqa_tpu"}
+
+
+def _port_files():
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, names in os.walk(PORT):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    return sorted(files)
+
+
+def _port_modules():
+    mods = []
+    for path in _port_files():
+        rel = os.path.relpath(path, REPO)
+        if rel.startswith("sasvqa_torch"):
+            mod = rel[:-3].replace(os.sep, ".")
+            mods.append(mod[:-len(".__init__")]
+                        if mod.endswith(".__init__") else mod)
+    return mods
+
+
+def test_no_forbidden_imports_ast():
+    bad = []
+    for path in _port_files():
+        with open(path, encoding="utf-8") as f:
+            tree = ast.parse(f.read(), filename=path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            bad += [f"{os.path.relpath(path, REPO)}: {n}" for n in names
+                    if n.split(".")[0] in FORBIDDEN]
+    assert not bad, bad
+    assert len(_port_files()) > 16
+
+
+def test_importing_every_module_loads_no_jax():
+    code = (
+        "import importlib, sys\n"
+        f"for m in {_port_modules()!r}:\n"
+        "    importlib.import_module(m)\n"
+        f"leaked = sorted(m for m in sys.modules "
+        f"if m.split('.')[0] in {sorted(FORBIDDEN)!r})\n"
+        "assert not leaked, leaked\n"
+        "print('ok', len(sys.modules))\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.startswith("ok")
+
+
+def test_entry_points_default_to_cuda(monkeypatch):
+    """Without a GPU the entry points raise unless device='cpu' is
+    passed; nothing silently runs on the CPU."""
+    from sasvqa_torch.data.tokenization import make_test_wordpiece
+    from sasvqa_torch.models.git import greedy_generate
+    from sasvqa_torch.models.presets import build_model
+    from sasvqa_torch.tasks.serve import QAEngine
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = {"model": {"pretrained_model": "tiny-git"}, "img_size": 32}
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_model(cfg)
+    _, model = build_model(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        QAEngine(model, "git", make_test_wordpiece())
+    ids = np.ones((1, 4), np.int32)
+    px = np.zeros((1, 1, 32, 32, 3), np.float32)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        greedy_generate(model, ids, np.array([4]), px)
+    out = greedy_generate(model, ids, np.array([4]), px, max_text_len=6,
+                          device="cpu")
+    assert out.shape == (1, 5) and out.device.type == "cpu"
+
+
+def test_cpu_model_never_counts_a_kernel_launch():
+    """The whole tiny model on CPU tensors, forced onto the git-flash
+    route, takes the plain version: the launch counter stays 0."""
+    from sasvqa_torch.models.git import GITForCausalLM, greedy_generate
+    from sasvqa_torch.models.presets import _git_config
+    from sasvqa_torch.ops import _build
+
+    _build.reset_launch_counts()
+    model = GITForCausalLM(_git_config("tiny"), flash=True).eval()
+    ids = np.full((2, 5), 7, np.int32)
+    px = np.random.default_rng(0).normal(size=(2, 1, 32, 32, 3)).astype(
+        np.float32)
+    greedy_generate(model, ids, np.array([5, 2]), px, max_text_len=8,
+                    device="cpu")
+    assert _build.launch_counts == {"git_flash_fwd": 0}
+
+
+def test_seeded_init_is_reproducible():
+    from sasvqa_torch.models.git import GITForCausalLM
+    from sasvqa_torch.models.presets import _git_config
+    cfg = _git_config("tiny")
+    a = GITForCausalLM(cfg, generator=torch.Generator().manual_seed(3))
+    b = GITForCausalLM(cfg, generator=torch.Generator().manual_seed(3))
+    c = GITForCausalLM(cfg, generator=torch.Generator().manual_seed(4))
+    for (name, pa), pb, pc in zip(a.state_dict().items(),
+                                  b.state_dict().values(),
+                                  c.state_dict().values()):
+        assert torch.equal(pa, pb), name
+        assert torch.isfinite(pa).all(), name
+    assert not torch.equal(a.output.weight, c.output.weight)
