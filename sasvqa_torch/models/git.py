@@ -14,7 +14,13 @@ the GPU (image + text >= 512 tokens, 3 or more frames of 197 tokens) go
 through the hand-written kernel in ops/git_flash.py; shorter ones, and
 the CPU, take the dense additive-bias path, as ``_use_git_flash`` decides
 in the JAX package.  ``flash=True/False`` forces the route (on the CPU
-the git-flash route runs the kernel's plain version).
+the git-flash route runs the kernels' plain versions).
+
+The training forward (``deterministic=False``) applies the embedding,
+attention-output and FFN dropouts and the attention-probability dropout,
+all drawn from an explicit ``torch.Generator``; the git-flash route
+regenerates the attention mask in its kernels from a per-layer seed, the
+dense route applies the same hash mask densely.
 """
 
 from __future__ import annotations
@@ -29,10 +35,12 @@ from torch import nn
 from sasvqa_torch.core.device import DeviceLike, resolve_device
 from sasvqa_torch.core.pixels import maybe_dequantize
 from sasvqa_torch.models.clip import CLIPVisionConfig, CLIPVisionEncoder
-from sasvqa_torch.models.layers import (BertFFN, Dense, Embed, LayerNorm,
-                                        init_params, merge_heads, split_heads)
+from sasvqa_torch.models.layers import (BertFFN, Dense, Dropout, Embed,
+                                        LayerNorm, init_params, merge_heads,
+                                        split_heads)
 from sasvqa_torch.ops.attention import NEG_INF, dot_product_attention
-from sasvqa_torch.ops.git_flash import git_flash_attention
+from sasvqa_torch.ops.git_flash import (dense_attention_with_hash_dropout,
+                                        git_flash_attention)
 
 _GIT_FLASH_MIN_SEQ = 512
 
@@ -47,8 +55,8 @@ class GITConfig:
     max_position_embeddings: int = 1024
     layer_norm_eps: float = 1e-12
     hidden_act: str = "gelu"
-    # dropout rates of the training path; the serving slice runs the
-    # deterministic forward only
+    # dropout rates of the training forward: hidden (embeddings, attention
+    # output, FFN) and attention probabilities (HF GitSelfAttention)
     dropout: float = 0.1
     attention_dropout: float = 0.1
     pad_token_id: int = 0
@@ -70,12 +78,15 @@ class GitAttention(nn.Module):
     exposed for decode caching."""
 
     def __init__(self, hidden_size: int, num_heads: int,
-                 layer_norm_eps: float, dtype: torch.dtype = torch.float32):
+                 layer_norm_eps: float, dtype: torch.dtype = torch.float32,
+                 dropout_rate: float = 0.0, attn_dropout_rate: float = 0.0):
         super().__init__()
         self.num_heads = num_heads
+        self.attn_dropout_rate = attn_dropout_rate
         self.qkv = Dense(hidden_size, 3 * hidden_size, dtype=dtype)
         self.out_dense = Dense(hidden_size, hidden_size, dtype=dtype)
         self.out_ln = LayerNorm(hidden_size, layer_norm_eps, dtype)
+        self.drop = Dropout(dropout_rate)
 
     def project(self, hidden: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -87,25 +98,42 @@ class GitAttention(nn.Module):
     def finish(self, hidden: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
                v: torch.Tensor, bias: Optional[torch.Tensor],
                use_flash: Optional[bool] = None,
-               git_mask: Optional[Tuple[int, torch.Tensor]] = None
-               ) -> torch.Tensor:
+               git_mask: Optional[Tuple[int, torch.Tensor]] = None,
+               generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        # attention-probability dropout: a per-(layer, step) int32 seed
+        # drawn from the dropout generator; the coordinate hash
+        # decorrelates (b, h, row, col).  The seed stays on the device.
+        drop_on = self.attn_dropout_rate > 0.0 and generator is not None
+        seed = None
+        if drop_on:
+            seed = torch.randint(-2 ** 31, 2 ** 31, (1,), generator=generator,
+                                 device=hidden.device,
+                                 dtype=torch.int64).to(torch.int32)
         if git_mask is not None:
             num_img, attention_mask = git_mask
-            out, _ = git_flash_attention(q, k, v, attention_mask, num_img)
+            out, _ = git_flash_attention(
+                q, k, v, attention_mask, num_img,
+                rate=self.attn_dropout_rate if drop_on else 0.0, seed=seed)
+        elif drop_on:
+            out = dense_attention_with_hash_dropout(
+                q, k, v, bias, seed, self.attn_dropout_rate)
         else:
             out = dot_product_attention(q, k, v, bias=bias,
                                         use_flash=use_flash)
-        return self.finish_from_ctx(hidden, merge_heads(out))
+        return self.finish_from_ctx(hidden, merge_heads(out), generator)
 
-    def finish_from_ctx(self, hidden: torch.Tensor,
-                        ctx: torch.Tensor) -> torch.Tensor:
-        """Output projection + residual LN for a context computed by the
-        caller (the decode step attends over the split cache itself)."""
-        return self.out_ln(hidden + self.out_dense(ctx))
+    def finish_from_ctx(self, hidden: torch.Tensor, ctx: torch.Tensor,
+                        generator: Optional[torch.Generator] = None
+                        ) -> torch.Tensor:
+        """Output projection (+ dropout) + residual LN for a context
+        computed by the caller (the decode step attends over the split
+        cache itself)."""
+        return self.out_ln(hidden + self.drop(self.out_dense(ctx), generator))
 
-    def forward(self, hidden, bias=None, use_flash=None):
+    def forward(self, hidden, bias=None, use_flash=None, generator=None):
         q, k, v = self.project(hidden)
-        return self.finish(hidden, q, k, v, bias, use_flash)
+        return self.finish(hidden, q, k, v, bias, use_flash,
+                           generator=generator)
 
 
 class GitLayer(nn.Module):
@@ -113,20 +141,24 @@ class GitLayer(nn.Module):
         super().__init__()
         c = config
         self.attention = GitAttention(c.hidden_size, c.num_heads,
-                                      c.layer_norm_eps, dtype)
+                                      c.layer_norm_eps, dtype, c.dropout,
+                                      c.attention_dropout)
         self.ffn = BertFFN(c.hidden_size, c.intermediate_size, c.hidden_act,
-                           c.layer_norm_eps, dtype)
+                           c.layer_norm_eps, dtype, c.dropout)
 
-    def forward(self, x, bias=None, use_flash=None, git_mask=None):
-        return self.full_with_kv(x, bias, use_flash, git_mask)[0]
+    def forward(self, x, bias=None, use_flash=None, git_mask=None,
+                generator=None):
+        return self.full_with_kv(x, bias, use_flash, git_mask, generator)[0]
 
-    def full_with_kv(self, x, bias=None, use_flash=None, git_mask=None):
+    def full_with_kv(self, x, bias=None, use_flash=None, git_mask=None,
+                     generator=None):
         """Forward pass that also returns this layer's K/V (for building
-        decode caches during prompt fill)."""
+        decode caches during prompt fill).  ``generator`` turns the
+        dropouts on."""
         q, k, v = self.attention.project(x)
         h = self.attention.finish(x, q, k, v, bias, use_flash,
-                                  git_mask=git_mask)
-        return self.ffn(h), (k, v)
+                                  git_mask=git_mask, generator=generator)
+        return self.ffn(h, generator), (k, v)
 
 
 def git_attention_bias(num_img: int, attention_mask: torch.Tensor,
@@ -198,6 +230,7 @@ class GITForCausalLM(nn.Module):
         self.position_embeddings = Embed(c.max_position_embeddings,
                                          c.hidden_size, dtype)
         self.emb_ln = LayerNorm(c.hidden_size, c.layer_norm_eps, dtype)
+        self.emb_drop = Dropout(c.dropout)
         for i in range(c.num_layers):
             self.add_module(f"layer_{i}", GitLayer(c, dtype))
         self.output = Dense(c.hidden_size, c.vocab_size, dtype=dtype)
@@ -242,11 +275,12 @@ class GITForCausalLM(nn.Module):
         feats = feats.reshape(b, t * p, dv)
         return self.visual_projection_ln(self.visual_projection(feats))
 
-    def embed_text(self, input_ids: torch.Tensor,
-                   positions: torch.Tensor) -> torch.Tensor:
+    def embed_text(self, input_ids: torch.Tensor, positions: torch.Tensor,
+                   generator: Optional[torch.Generator] = None
+                   ) -> torch.Tensor:
         x = self.word_embeddings(input_ids) \
             + self.position_embeddings(positions)
-        return self.emb_ln(x)
+        return self.emb_drop(self.emb_ln(x), generator)
 
     def _visual_prefix(self, pixel_values: torch.Tensor,
                        b: int) -> torch.Tensor:
@@ -261,20 +295,27 @@ class GITForCausalLM(nn.Module):
 
     def forward(self, input_ids: torch.Tensor, attention_mask: torch.Tensor,
                 pixel_values: torch.Tensor,
-                labels: Optional[torch.Tensor] = None
+                labels: Optional[torch.Tensor] = None,
+                deterministic: bool = True,
+                generator: Optional[torch.Generator] = None
                 ) -> Dict[str, torch.Tensor]:
-        """Deterministic forward.  input_ids/attention_mask: (B, L);
+        """Training/scoring forward.  input_ids/attention_mask: (B, L);
         pixel_values: (B, T, H, W, C); labels: (B, L) with -100 ignored.
         Returns ``logits`` (B, M+L, V) f32, or with labels the text-only
-        ``logits_text`` (B, L-1, V) and the shifted CE ``loss``."""
+        ``logits_text`` (B, L-1, V) and the shifted CE ``loss``.
+        ``deterministic=False`` applies every dropout, drawn from
+        ``generator`` (required then, on the inputs' device)."""
+        if not deterministic and generator is None:
+            raise ValueError("deterministic=False needs a dropout generator")
+        gen = None if deterministic else generator
         b, l = input_ids.shape
         vis = self._visual_prefix(pixel_values, b)
         m = vis.shape[1]
         pos = torch.arange(l, device=input_ids.device)[None, :]
-        h = torch.cat([vis, self.embed_text(input_ids, pos)], dim=1)
+        h = torch.cat([vis, self.embed_text(input_ids, pos, gen)], dim=1)
         route = self._attention_route(m, attention_mask)
         for lyr in self.layers:
-            h = lyr(h, **route)
+            h = lyr(h, generator=gen, **route)
         if labels is None:
             return {"logits": self.output(h).float()}
         # the loss reads only text-position logits shifted past the

@@ -7,6 +7,10 @@ tree maps onto these modules leaf by leaf (models/convert.py).
 Dtype policy, as the JAX package's ``dtype=`` modules: parameters are
 f32; :class:`Dense`, :class:`Embed` and :class:`LayerNorm` compute in
 their ``dtype`` (bf16 when serving), LayerNorm statistics in f32.
+
+Dropout draws from an explicit ``torch.Generator`` passed down the
+forward (the counterpart of the flax ``dropout`` rng stream); without one
+the forward is deterministic.
 """
 
 from __future__ import annotations
@@ -41,6 +45,25 @@ class Dense(nn.Module):
         dt = self.dtype
         bias = None if self.bias is None else self.bias.to(dt)
         return F.linear(x.to(dt), self.weight.to(dt), bias)
+
+
+class Dropout(nn.Module):
+    """``flax.linen.Dropout`` counterpart: keeps each element with
+    probability 1 - rate and scales it by 1/(1 - rate).  The Bernoulli
+    mask comes from ``generator`` on the tensor's device;
+    ``generator=None`` (or rate 0) returns the input unchanged."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if generator is None or self.rate == 0.0:
+            return x
+        keep = torch.rand(x.shape, generator=generator,
+                          device=x.device) >= self.rate
+        return torch.where(keep, x / (1.0 - self.rate), torch.zeros_like(x))
 
 
 class LayerNorm(nn.Module):
@@ -196,20 +219,24 @@ class PreLNBlock(nn.Module):
 
 
 class BertFFN(nn.Module):
-    """BERT feed-forward sub-block: dense -> act -> dense -> +res -> LN."""
+    """BERT feed-forward sub-block: dense -> act -> dense -> dropout ->
+    +res -> LN."""
 
     def __init__(self, hidden_size: int, intermediate_size: int,
                  activation: str = "gelu", layer_norm_eps: float = 1e-12,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 dropout_rate: float = 0.0):
         super().__init__()
         self.activation = activation
         self.intermediate = Dense(hidden_size, intermediate_size, dtype=dtype)
         self.output = Dense(intermediate_size, hidden_size, dtype=dtype)
+        self.drop = Dropout(dropout_rate)
         self.ln = LayerNorm(hidden_size, layer_norm_eps, dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         h = ACT2FN[self.activation](self.intermediate(x))
-        return self.ln(x + self.output(h))
+        return self.ln(x + self.drop(self.output(h), generator))
 
 
 class PatchEmbed(nn.Module):

@@ -4,11 +4,14 @@ Each source under ``ops/csrc`` is compiled by ``nvcc`` for ``sm_90a`` into
 a shared library with a plain C interface, under ``ops/build/`` (listed
 in .gitignore), at first use, and loaded with ``ctypes``.  The library's
 file name carries a hash of its source and flags, so an edited source is
-rebuilt.  :func:`build_all` starts one ``nvcc`` per source, all at once.
+rebuilt: the hash covers the source and every header it includes from
+``csrc/``.  :func:`build_all` starts one ``nvcc`` per source, all at
+once.
 
 ``launch_counts`` holds one integer per kernel.  A wrapper adds one where
 it launches its kernel and nowhere else, so a run can show that its main
-path went through the kernels.
+path went through the kernels.  ``HASH_DROPOUT`` counts the launches of
+K1 and K2 that ran the in-kernel dropout hash (``rate`` > 0).
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -27,12 +31,15 @@ CSRC_DIR = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "build")
 
 # kernel name -> source file under csrc/
-SOURCES = {"git_flash_fwd": "git_flash_fwd.cu"}
+SOURCES = {"git_flash_fwd": "git_flash_fwd.cu",
+           "git_flash_bwd": "git_flash_bwd.cu"}
+HASH_DROPOUT = "hash_dropout"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-launch_counts: Dict[str, int] = {name: 0 for name in SOURCES}
+launch_counts: Dict[str, int] = {name: 0 for name in (*SOURCES,
+                                                        HASH_DROPOUT)}
 # nvcc's output per kernel from the last build in this process
 # (-Xptxas -v: registers, shared memory, spills)
 build_logs: Dict[str, str] = {}
@@ -60,10 +67,29 @@ def _nvcc() -> str:
                        "the CUDA toolkit is installed")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def _source_files(name: str):
+    """The kernel's source and, transitively, every header it includes
+    from ``csrc/`` (quoted includes), in a fixed order."""
+    seen, todo = [], [SOURCES[name]]
+    while todo:
+        rel = todo.pop(0)
+        if rel in seen:
+            continue
+        seen.append(rel)
+        with open(os.path.join(CSRC_DIR, rel), "rb") as f:
+            todo += [m.decode() for m in _INCLUDE.findall(f.read())
+                     if os.path.exists(os.path.join(CSRC_DIR, m.decode()))]
+    return seen
+
+
 def library_path(name: str) -> str:
-    src = os.path.join(CSRC_DIR, SOURCES[name])
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for rel in _source_files(name):
+        with open(os.path.join(CSRC_DIR, rel), "rb") as f:
+            digest.update(rel.encode() + b"\0" + f.read())
     return os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:12]}.so")
 
 

@@ -9,6 +9,9 @@
 //   ok(r, c) = c < num_img                     (image columns: every row)
 //           || (r >= num_img && c <= r && text_mask[b, c - num_img] != 0)
 //   online softmax with f32 running max m and sum l (l sums the f32 p);
+//   with dropout (rate > 0), p is then multiplied by the K4 keep factor
+//   {0, 1/(1-rate)} of hash_keep (git_flash_common.cuh), so l and LSE stay
+//   those of the undropped softmax;
 //   P is cast to bf16 for P.V with f32 accumulation;
 //   O = acc / l, LSE = m + log(l).
 // Columns >= S are masked without being read (the TPU kernel pads S to a
@@ -29,61 +32,17 @@
 // skipped.  wgmma, TMA, warp specialisation and double buffering are left
 // for later work.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "git_flash_common.cuh"
+
 #include <math.h>
-#include <stdint.h>
 
 namespace {
 
-constexpr int DH = 64;         // head dim (the wrapper rejects others)
 constexpr int BM = 64;         // query rows per CTA
 constexpr int BN = 64;         // keys per tile
 constexpr int NTHREADS = 128;  // 4 warps x 16 rows
-constexpr int PITCH = DH + 8;  // smem row pitch in bf16: 144 B, conflict-free
-constexpr float MASK_BIAS = -1e9f;
 
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t ld_u16(const __nv_bfloat16* p) {
-  return static_cast<uint32_t>(*reinterpret_cast<const uint16_t*>(p));
-}
-
-// D += A(16x16 bf16, row) * B(16x8 bf16, col), f32 accumulate
-__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// rows x DH bf16 tile from global (row stride `ss` elements) into smem;
-// rows at or past S are zero-filled
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* src,
-                                          long long ss, int row0, int S,
-                                          int tid) {
-  constexpr int VEC = 8;  // 8 bf16 = 16 B per load
-  for (int i = tid; i < BN * (DH / VEC); i += NTHREADS) {
-    const int r = i / (DH / VEC);
-    const int c = (i % (DH / VEC)) * VEC;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < S) {
-      val = *reinterpret_cast<const uint4*>(src + (long long)(row0 + r) * ss + c);
-    }
-    *reinterpret_cast<uint4*>(dst + r * PITCH + c) = val;
-  }
-}
-
+template <bool DROPOUT>
 __global__ void __launch_bounds__(NTHREADS)
 git_flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
                      const __nv_bfloat16* __restrict__ k,
@@ -95,8 +54,8 @@ git_flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
                      long long k_sb, long long k_sh, long long k_ss,
                      long long v_sb, long long v_sh, long long v_ss,
                      long long o_sb, long long o_sh, long long o_ss,
-                     float scale) {
-  static_assert(BM == BN, "load_tile stages BN rows for Q too");
+                     float scale, const int32_t* __restrict__ seed_ptr,
+                     uint32_t thresh, float inv_keep) {
   __shared__ __align__(16) __nv_bfloat16 sQ[BM * PITCH];
   __shared__ __align__(16) __nv_bfloat16 sK[BN * PITCH];
   __shared__ __align__(16) __nv_bfloat16 sV[BN * PITCH];
@@ -111,13 +70,14 @@ git_flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
   const int b = bh / H;
   const int h = bh % H;
   const int q0 = blockIdx.x * BM;
+  const uint32_t seed = DROPOUT ? static_cast<uint32_t>(seed_ptr[0]) : 0u;
 
   const __nv_bfloat16* qp = q + b * q_sb + h * q_sh;
   const __nv_bfloat16* kp = k + b * k_sb + h * k_sh;
   const __nv_bfloat16* vp = v + b * v_sb + h * v_sh;
   const int32_t* tm = text_mask + (long long)b * L;
 
-  load_tile(sQ, qp, q_ss, q0, S, tid);
+  load_tile<BM, NTHREADS>(sQ, qp, q_ss, q0, S, tid);
   __syncthreads();
 
   // Q A-fragments for this warp's 16 rows, one per 16-wide slice of DH
@@ -145,8 +105,8 @@ git_flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
   const int kv_end = min(S, max(num_img, q0 + BM));
   for (int k0 = 0; k0 < kv_end; k0 += BN) {
     __syncthreads();  // every warp is done with the previous K/V tile
-    load_tile(sK, kp, k_ss, k0, S, tid);
-    load_tile(sV, vp, v_ss, k0, S, tid);
+    load_tile<BN, NTHREADS>(sK, kp, k_ss, k0, S, tid);
+    load_tile<BN, NTHREADS>(sV, vp, v_ss, k0, S, tid);
     if (tid < BN) {
       const int c = k0 + tid;
       sColOk[tid] = (c < num_img) ? 1 : (c < S && tm[c - num_img] != 0);
@@ -177,7 +137,7 @@ git_flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
         float x = s[j][e] * scale;
         if (c >= S) {
           x = -INFINITY;
-        } else if (!(c < num_img || (r >= num_img && c <= r && sColOk[cl]))) {
+        } else if (!git_mask_ok(r, c, num_img, sColOk[cl])) {
           x += MASK_BIAS;
         }
         s[j][e] = x;
@@ -199,8 +159,15 @@ git_flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const float p = expf(s[j][e] - m_run[e >> 1]);
-        s[j][e] = p;
         l_run[e >> 1] += p;
+        // dropout multiplies P after l is updated, as _fwd_kernel does
+        if (DROPOUT) {
+          const int c = k0 + j * 8 + 2 * t + (e & 1);
+          s[j][e] = hash_keep(bh, row[e >> 1], c, seed, thresh) ? p * inv_keep
+                                                                : 0.f;
+        } else {
+          s[j][e] = p;
+        }
       }
     }
 #pragma unroll
@@ -264,29 +231,29 @@ extern "C" {
 
 // Launches on `stream`; returns cudaGetLastError() after the launch.
 // q/k/v/o strides are in elements, for a (B, H, S, DH) view with unit
-// stride on DH; lse is (B, H, S) contiguous; text_mask is (B, L) int32.
+// stride on DH; lse is (B, H, S) contiguous; text_mask is (B, L) int32;
+// seed is a device int32.  thresh == 0 (rate 0) launches the kernel
+// without the dropout code, bit for bit the kernel before dropout existed.
 int git_flash_fwd(const void* q, const void* k, const void* v,
                   const void* text_mask, void* o, void* lse, int B, int H,
                   int S, int num_img, int L, long long q_sb, long long q_sh,
                   long long q_ss, long long k_sb, long long k_sh,
                   long long k_ss, long long v_sb, long long v_sh,
                   long long v_ss, long long o_sb, long long o_sh,
-                  long long o_ss, float scale, void* stream) {
+                  long long o_ss, float scale, const void* seed,
+                  unsigned int thresh, float inv_keep, void* stream) {
   const dim3 grid((S + BM - 1) / BM, B * H);
-  git_flash_fwd_kernel<<<grid, NTHREADS, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
+  auto kernel = thresh ? git_flash_fwd_kernel<true>
+                       : git_flash_fwd_kernel<false>;
+  kernel<<<grid, NTHREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v),
       static_cast<const int32_t*>(text_mask),
       static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), H, S, num_img,
       L, q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh,
-      o_ss, scale);
+      o_ss, scale, static_cast<const int32_t*>(seed), thresh, inv_keep);
   return static_cast<int>(cudaGetLastError());
-}
-
-const char* git_flash_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
 }  // extern "C"

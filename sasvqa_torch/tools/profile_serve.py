@@ -44,7 +44,9 @@ def _busy_us(intervals):
     return total
 
 
-def profile_part(name, fn, trace_dir=None, top=8):
+def profile_part(name, fn, trace_dir=None, top=8, keep_all=False):
+    """Profile one call of ``fn``; ``keep_all`` adds every kernel's
+    summed device time under ``top_all``."""
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -60,11 +62,15 @@ def profile_part(name, fn, trace_dir=None, top=8):
     if trace_dir:
         os.makedirs(trace_dir, exist_ok=True)
         prof.export_chrome_trace(os.path.join(trace_dir, f"{name}.json"))
-    return {"part": name, "wall_ms": wall_us / 1e3,
-            "kernel_ms": sum(per_name.values()) / 1e3,
-            "busy_share": busy / wall_us, "launches": len(kernels),
-            "top": [{"kernel": k[:80], "ms": v / 1e3} for k, v in
-                    sorted(per_name.items(), key=lambda kv: -kv[1])[:top]]}
+    ranked = [{"kernel": k[:80], "ms": v / 1e3} for k, v in
+              sorted(per_name.items(), key=lambda kv: -kv[1])]
+    row = {"part": name, "wall_ms": wall_us / 1e3,
+           "kernel_ms": sum(per_name.values()) / 1e3,
+           "busy_share": busy / wall_us, "launches": len(kernels),
+           "top": ranked[:top]}
+    if keep_all:
+        row["top_all"] = ranked
+    return row
 
 
 def main(argv=None) -> int:

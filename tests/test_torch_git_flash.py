@@ -1,9 +1,11 @@
-"""Port git-flash (plain version on the CPU) vs the JAX package's Pallas
-kernel in interpret mode and its dense-bias path, in f32."""
+"""Port git-flash (plain versions on the CPU) vs the JAX package's Pallas
+kernels in interpret mode, its dense-bias path and its hash dropout, in
+f32."""
 
 import numpy as np
 import pytest
 
+import jax
 import jax.numpy as jnp
 import torch
 
@@ -13,8 +15,10 @@ from sasvqa_tpu.ops import git_flash as jgf
 from sasvqa_torch.models.git import git_attention_bias
 from sasvqa_torch.ops import _build
 from sasvqa_torch.ops.attention import _plain_attention
-from sasvqa_torch.ops.git_flash import (git_flash_attention,
-                                        git_flash_attention_reference)
+from sasvqa_torch.ops.git_flash import (dense_attention_with_hash_dropout,
+                                        git_flash_attention,
+                                        git_flash_attention_reference,
+                                        hash_dropout_factor)
 
 from _torch_parity import to_torch
 
@@ -95,10 +99,14 @@ def test_cpu_tensors_take_plain_path_and_count_nothing():
 
 
 def test_dropout_rate_raises():
+    """The JAX entry's rules: rate > 0 needs a seed, rate lies in [0, 1)."""
     q, k, v, mask = _inputs(128, 24)
-    with pytest.raises(NotImplementedError, match="K4"):
-        git_flash_attention(to_torch(q), to_torch(k), to_torch(v),
-                            to_torch(mask), 128, rate=0.1)
+    args = (to_torch(q), to_torch(k), to_torch(v), to_torch(mask), 128)
+    with pytest.raises(ValueError, match="seed"):
+        git_flash_attention(*args, rate=0.1)
+    for rate in (1.0, -0.1):
+        with pytest.raises(ValueError, match="not in"):
+            git_flash_attention(*args, rate=rate, seed=3)
 
 
 @pytest.mark.parametrize("l", [1, 7, 30])
@@ -129,3 +137,118 @@ def test_dense_attention_matches_xla_path():
     with pytest.raises(NotImplementedError, match="K5"):
         tatt.dot_product_attention(to_torch(q), to_torch(k), to_torch(v),
                                    use_flash=True)
+
+
+# ---- K4 hash dropout and the training path (forward and backward) ---------
+
+# the JAX kernel tests' gradient tolerance (tests/test_git_flash.py)
+GRAD_ATOL, GRAD_RTOL = 5e-5, 2e-4
+
+
+@pytest.mark.parametrize("seed", [0, 1, -1, 123456789, -987654321,
+                                  -2 ** 31, -2 ** 31 + 5, 2 ** 31 - 1,
+                                  2 ** 31 - 17])
+def test_hash_dropout_factor_bit_equal(seed):
+    """The port's uint32 emulation gives the JAX int32 hash bit for bit,
+    seeds at and near both int32 ends included."""
+    for b, h, s, rate in [(1, 1, 7, 0.1), (2, 3, 33, 0.25), (3, 2, 64, 0.5),
+                          (1, 2, 130, 0.9)]:
+        ours = hash_dropout_factor(b, h, s, seed, rate).numpy()
+        ref = np.asarray(jgf.hash_dropout_factor(b, h, s, jnp.int32(seed),
+                                                 rate))
+        np.testing.assert_array_equal(ours, ref)
+        assert ours.dtype == np.float32
+
+
+def test_hash_dropout_factor_tensor_seed_matches_int_seed():
+    t = hash_dropout_factor(2, 2, 40, torch.tensor([-7], dtype=torch.int32),
+                            0.3)
+    assert torch.equal(t, hash_dropout_factor(2, 2, 40, -7, 0.3))
+
+
+def _grads_of(fn, *xs):
+    xs = [to_torch(x).requires_grad_(True) for x in xs]
+    out = fn(*xs)
+    (out.float() ** 2).mean().backward()
+    return out.detach().numpy(), [x.grad.numpy() for x in xs]
+
+
+def test_dense_attention_with_hash_dropout_matches_jax():
+    num_img, l = 40, 12
+    q, k, v, mask = _inputs(num_img, l, d=16, seed=3)
+    bias = jax_git_bias(num_img, jnp.asarray(mask))
+    rate, seed = 0.3, 77
+
+    def jfn(q, k, v):
+        return jgf.dense_attention_with_hash_dropout(q, k, v, bias,
+                                                     jnp.int32(seed), rate)
+
+    jout = np.asarray(jfn(q, k, v))
+    jgrads = jax.grad(lambda *a: (jfn(*a).astype(jnp.float32) ** 2).mean(),
+                      argnums=(0, 1, 2))(q, k, v)
+    out, grads = _grads_of(
+        lambda q, k, v: dense_attention_with_hash_dropout(
+            q, k, v, to_torch(np.asarray(bias)), seed, rate), q, k, v)
+    np.testing.assert_allclose(out, jout, atol=ATOL, rtol=RTOL)
+    for g, jg in zip(grads, jgrads):
+        np.testing.assert_allclose(g, np.asarray(jg), atol=GRAD_ATOL,
+                                   rtol=GRAD_RTOL)
+
+
+@pytest.mark.parametrize("fused", [True, False])
+@pytest.mark.parametrize("rate", [0.0, 0.25])
+def test_flash_forward_backward_match_jax_kernels(fused, rate, monkeypatch):
+    """The plain forward and backward against the JAX Pallas kernels in
+    interpret mode, for both JAX backward formulations; num_img=256 with
+    128-blocks covers the JAX kernels' mask-free prefix, B=2 x H=2 the
+    (b*H + h) hash coordinate."""
+    monkeypatch.setattr(jgf, "FUSED_BWD", fused)
+    num_img, l = 256, 32
+    q, k, v, mask = _inputs(num_img, l, seed=5)
+    seed = -12345
+
+    def jfn(q, k, v):
+        return jgf.git_flash_attention(q, k, v, jnp.asarray(mask), num_img,
+                                       128, 128, dropout_rate=rate,
+                                       dropout_seed=jnp.int32(seed))
+
+    jout = np.asarray(jfn(q, k, v))
+    jgrads = jax.grad(lambda *a: (jfn(*a).astype(jnp.float32) ** 2).mean(),
+                      argnums=(0, 1, 2))(q, k, v)
+    out, grads = _grads_of(
+        lambda q, k, v: git_flash_attention(q, k, v, to_torch(mask),
+                                            num_img, rate=rate,
+                                            seed=seed if rate else None)[0],
+        q, k, v)
+    np.testing.assert_allclose(out, jout, atol=ATOL, rtol=RTOL)
+    for g, jg in zip(grads, jgrads):
+        np.testing.assert_allclose(g, np.asarray(jg), atol=GRAD_ATOL,
+                                   rtol=GRAD_RTOL)
+
+
+def test_flash_dropout_matches_dense_hash_dropout():
+    """Forward and gradients of the git-flash plain versions with dropout
+    equal the dense hash-dropout attention under the GIT bias."""
+    num_img, l = 70, 9
+    q, k, v, mask = _inputs(num_img, l, seed=8)
+    tm = to_torch(mask)
+    bias = git_attention_bias(num_img, tm)
+    rate, seed = 0.4, 2 ** 31 - 3
+    out_f, g_f = _grads_of(lambda q, k, v: git_flash_attention(
+        q, k, v, tm, num_img, rate=rate, seed=seed)[0], q, k, v)
+    out_d, g_d = _grads_of(lambda q, k, v: dense_attention_with_hash_dropout(
+        q, k, v, bias, seed, rate), q, k, v)
+    np.testing.assert_allclose(out_f, out_d, atol=ATOL, rtol=RTOL)
+    for a, b in zip(g_f, g_d):
+        np.testing.assert_allclose(a, b, atol=GRAD_ATOL, rtol=GRAD_RTOL)
+
+
+def test_cpu_backward_counts_nothing_and_leaves_lse_undifferentiable():
+    q, k, v, mask = _inputs(20, 6)
+    xs = [to_torch(x).requires_grad_(True) for x in (q, k, v)]
+    _build.reset_launch_counts()
+    out, lse = git_flash_attention(*xs, to_torch(mask), 20, rate=0.2, seed=1)
+    assert not lse.requires_grad
+    out.sum().backward()
+    assert all(x.grad is not None for x in xs)
+    assert not any(_build.launch_counts.values())

@@ -92,6 +92,22 @@ def test_entry_points_default_to_cuda(monkeypatch):
                           device="cpu")
     assert out.shape == (1, 5) and out.device.type == "cpu"
 
+    from sasvqa_torch.train.steps import (create_train_state,
+                                          make_git_train_step,
+                                          make_scan_train_step)
+    cfg = {"learning_rate": 1e-3}
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        create_train_state(model, cfg, total_steps=4)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_git_train_step()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_scan_train_step(2)
+    state = create_train_state(model, cfg, total_steps=4, device="cpu")
+    batch = {"text_input_ids": ids, "text_attention_mask": np.ones_like(ids),
+             "visual_inputs": px, "labels": ids}
+    state, metrics = make_git_train_step(device="cpu")(state, batch, 0)
+    assert state.step == 1 and np.isfinite(metrics["loss"].item())
+
 
 def test_cpu_model_never_counts_a_kernel_launch():
     """The whole tiny model on CPU tensors, forced onto the git-flash
@@ -107,7 +123,16 @@ def test_cpu_model_never_counts_a_kernel_launch():
         np.float32)
     greedy_generate(model, ids, np.array([5, 2]), px, max_text_len=8,
                     device="cpu")
-    assert _build.launch_counts == {"git_flash_fwd": 0}
+    # and a training forward/backward with every dropout on
+    tid = torch.from_numpy(ids).long()
+    loss = model.train()(tid, torch.ones_like(tid), torch.from_numpy(px),
+                         labels=tid, deterministic=False,
+                         generator=torch.Generator().manual_seed(0))["loss"]
+    loss.backward()
+    assert model.layer_0.attention.qkv.weight.grad.abs().sum() > 0
+    assert set(_build.launch_counts) == {"git_flash_fwd", "git_flash_bwd",
+                                         "hash_dropout"}
+    assert not any(_build.launch_counts.values()), _build.launch_counts
 
 
 def test_seeded_init_is_reproducible():
