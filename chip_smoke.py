@@ -5,12 +5,20 @@
 
 Builds every CUDA kernel of the serving and training paths from the
 sources in the checkout and holds each kernel against its plain PyTorch
-version at the shapes the paths give it.  Then it serves video-QA
-requests through ``QAEngine`` at the full width of GIT-base (seeded
-random weights, 8 frames of 224x224 per request), checks the training
-route's gradients against the dense route's, and trains GIT-base with
-``make_scan_train_step`` at the bench's flagship shape (B=16, 8 frames,
-S=1608, dropout on), checking that each path went through the kernels.
+version at the shapes the paths give it.  Then it drives four main paths
+at full width (seeded random weights), checking that each went through
+its kernels:
+
+- GIT-base serving through ``QAEngine`` (8 frames of 224x224 a request),
+  a check of the GIT training route's gradients against the dense
+  route's, and GIT-base training with ``make_scan_train_step`` at the
+  bench's flagship shape (B=16, 8 frames, S=1608, dropout on);
+- BLIP-base classifier serving through ``QAEngine(family="blip")``
+  (batch 16, 4 frames of 384x384, 577 tokens a frame), a check of the
+  BLIP kernel route's gradients against the plain route's, and BLIP-base
+  training with ``make_scan_train_step(family="classifier")`` (4 micros
+  of 8 questions, adam).
+
 Each phase prints one JSON line; the line before the last lists the
 kernels, the last is ``{"ok": true, "device": {...}}``.  Exits non-zero,
 with no result, when there is no GPU or any check fails.
@@ -29,12 +37,18 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from sasvqa_torch.data.dataset import GITCollator
+from sasvqa_torch.data.dataset import ClassifierCollator, GITCollator
 from sasvqa_torch.data.pipeline import stack_microbatches
 from sasvqa_torch.data.tokenization import make_test_wordpiece
-from sasvqa_torch.models.git import GITForCausalLM, greedy_generate
+from sasvqa_torch.models.git import (GITForCausalLM, git_attention_bias,
+                                     greedy_generate)
 from sasvqa_torch.models.presets import _git_config, build_model
 from sasvqa_torch.ops import _build
+from sasvqa_torch.ops.attention import padding_bias
+from sasvqa_torch.ops.flash_attention import (_launch_dkv, _launch_dq,
+                                              flash_attention_reference,
+                                              flash_backward_reference,
+                                              flash_forward)
 from sasvqa_torch.ops.git_flash import (git_flash_attention,
                                         git_flash_attention_reference,
                                         git_flash_backward,
@@ -91,6 +105,30 @@ TRAIN = dict(batch_size=16, frames=8, max_seq_len=32, k_micro=2,
                     "grad_norm": 5.0, "decay": "constant"})
 # the gradient check's batch: rows the dense route's f32 scores fit
 GRAD_CHECK_ROWS = 2
+
+# BLIP-base classifier at configs/msvd_qa_base3.json's head (1000 labels,
+# mlp, cls_hidden_scale 2, dec-only, hidden dropout 0.1): 384x384 frames,
+# patch 16, 577 tokens a frame
+BLIP_CFG = {"model": {"pretrained_model": "Salesforce/blip-vqa-base",
+                      "hidden_dropout_prob": 0.1},
+            "num_labels": 1000, "classifier": "mlp", "cls_hidden_scale": 2}
+# serving: the config's val_batch_size 16, nframe 4 of 16 stored frames
+# (uniform strides by nframe: 16 / 4 = 4 frames), 64 frames a batch
+BLIP = dict(batch_size=16, nframe=4, frames=4, stored_frames=16, img=384,
+            max_txt_len=20, requests=32, seed=0)
+# training: train_batch_size 8, gradient_accumulation_steps 4, adam with
+# betas 0.9/0.999 and grad_norm 5 (the config), at a learning rate that
+# moves random weights within 4 updates; one repeated batch
+BLIP_TRAIN = dict(batch_size=8, k_micro=4, warmup_updates=1,
+                  timed_updates=3, seed=0,
+                  optim={"optim": "adam", "learning_rate": 2e-4,
+                         "betas": [0.9, 0.999], "grad_norm": 5.0,
+                         "decay": "constant"})
+BLIP_GRAD_CHECK_ROWS = 4
+# K5/K6 vs their plain versions: TOL_O/TOL_LSE and TOL_GRAD_REL above.  K5
+# rounds P to bf16 for P.V where the plain version keeps f32, O is bf16;
+# K6 rounds P and dS to bf16 before the products (f32 in the plain
+# version) and writes bf16 gradients
 
 
 def emit(obj) -> None:
@@ -344,6 +382,126 @@ def phase_train_kernels(shapes, rate):
     return out_rows
 
 
+def _flash_inputs(b, h, lq, lk, kind, seed):
+    """bf16 q (B, H, Lq, 64), k/v (B, H, Lk, 64), dO, and the bias: None,
+    a key-padding row bias (B, 1, 1, Lk) of random valid lengths, or the
+    GIT combined mask (B, 1, S, S) over S = Lq = Lk with 13 text tokens
+    of random lengths."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q, do = (torch.randn((b, h, lq, 64), generator=gen, device="cuda"
+                         ).to(torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn((b, h, lk, 64), generator=gen, device="cuda"
+                        ).to(torch.bfloat16) for _ in range(2))
+    rng = np.random.default_rng(seed)
+    bias = None
+    if kind == "row":
+        lens = rng.integers(lk // 2, lk + 1, size=b)
+        keep = (np.arange(lk)[None, :] < lens[:, None]).astype(np.int32)
+        bias = padding_bias(torch.from_numpy(keep).cuda())
+    elif kind == "git_mask":
+        _, _, _, mask = _kernel_inputs(b, 1, lq - 13, 13, 64, seed)
+        bias = git_attention_bias(lq - 13, mask)
+    return q, k, v, do, bias
+
+
+def flash_bounds(b, h, lq, lk, dh, bias):
+    """(bound_ms, bound_by) of the forward, the dQ launch, the dK/dV launch
+    and the whole backward on these inputs: B*H*Lq*Lk pairs at 4, 6, 8 and
+    10 times Dh FLOP (2*Dh a product: S+PV; S, dP, dQ; S, dP, dV, dK; the
+    five of one fused pass) against each input read and each output
+    written once (bf16 tensors, f32 LSE and D, the bias as stored)."""
+    pairs = b * h * lq * lk
+    xq, xk, row = b * h * lq * dh * 2, b * h * lk * dh * 2, b * h * lq * 4
+    nb = 0 if bias is None else bias.numel() * bias.element_size()
+    return {"fwd": roofline(4 * dh * pairs, 2 * xq + 2 * xk + row + nb),
+            "dq": roofline(6 * dh * pairs, 4 * xq + 2 * xk + 2 * row + nb),
+            "dkv": roofline(8 * dh * pairs, 2 * xq + 4 * xk + 2 * row + nb),
+            "bwd": roofline(10 * dh * pairs,
+                            4 * xq + 4 * xk + row + nb)}
+
+
+def phase_flash_kernels(cases):
+    """K5 (and K6 where asked) vs their plain versions for each case
+    name -> (B, H, Lq, Lk, bias kind, with backward), with the kernel,
+    plain-version and SDPA times and the bounds.  Returns name -> rows."""
+    out = {}
+    for name, (b, h, lq, lk, kind, with_bwd) in cases.items():
+        q, k, v, do, bias = _flash_inputs(b, h, lq, lk, kind, seed=lq + lk)
+        shape = {"B": b, "H": h, "Lq": lq, "Lk": lk, "Dh": 64, "bias": kind}
+        bounds = flash_bounds(b, h, lq, lk, 64, bias)
+        # SDPA takes an additive mask in the inputs' dtype
+        lib_mask = None if bias is None else bias.to(q.dtype)
+        o, lse = flash_forward(q, k, v, bias)
+        ref_o, ref_lse = flash_attention_reference(q, k, v, bias)
+        torch.cuda.synchronize()
+        err_o = (o.float() - ref_o.float()).abs().max().item()
+        err_lse = (lse - ref_lse).abs().max().item()
+        del ref_o, ref_lse
+        check(bool(torch.isfinite(o.float()).all()
+                   and torch.isfinite(lse).all()),
+              "flash_fwd gave non-finite values")
+        fwd = {"phase": "kernel", "name": "flash_fwd", "case": name,
+               "shape": shape, "max_abs_err_o": err_o,
+               "max_abs_err_lse": err_lse, "tol_o": TOL_O,
+               "tol_lse": TOL_LSE,
+               "kernel_ms": cuda_ms(lambda: flash_forward(q, k, v, bias),
+                                    reps=20),
+               "plain_ms": cuda_ms(lambda: flash_attention_reference(
+                   q, k, v, bias), reps=3, warmup=1),
+               "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+                   q, k, v, attn_mask=lib_mask), reps=20),
+               "library": "SDPA",
+               "bound_ms": bounds["fwd"][0], "bound_by": bounds["fwd"][1]}
+        emit(fwd)
+        check(err_o <= TOL_O and err_lse <= TOL_LSE,
+              f"flash_fwd disagrees with its plain version: {fwd}")
+        rows = {"fwd": fwd}
+        if with_bwd:
+            dq, delta = _launch_dq(q, k, v, o, lse, do, bias)
+            dk, dv = _launch_dkv(q, k, v, o, lse, do, bias, delta)
+            ref = flash_backward_reference(q, k, v, o, lse, do, bias)
+            torch.cuda.synchronize()
+            errs = {n: _rel_err(g, r) for n, g, r in
+                    zip(("dq", "dk", "dv"), (dq, dk, dv), ref)}
+            del dq, dk, dv, ref
+            ql, kl, vl = (x.detach().clone().requires_grad_(True)
+                          for x in (q, k, v))
+
+            def sdpa():
+                return F.scaled_dot_product_attention(ql, kl, vl,
+                                                      attn_mask=lib_mask)
+
+            lib_bwd = (cuda_ms(lambda: sdpa().backward(do), reps=10)
+                       - cuda_ms(sdpa, reps=10))
+            bwd = {"phase": "kernel", "name": "flash_bwd", "case": name,
+                   "shape": shape,
+                   "max_abs_err": {n: e for n, (e, _) in errs.items()},
+                   "max_abs_ref": {n: m for n, (_, m) in errs.items()},
+                   "tol_rel": TOL_GRAD_REL,
+                   "dq_ms": cuda_ms(lambda: _launch_dq(q, k, v, o, lse, do,
+                                                       bias), reps=10),
+                   "dkv_ms": cuda_ms(lambda: _launch_dkv(
+                       q, k, v, o, lse, do, bias, delta), reps=10),
+                   "plain_ms": cuda_ms(lambda: flash_backward_reference(
+                       q, k, v, o, lse, do, bias), reps=2, warmup=1),
+                   "library_ms": lib_bwd,
+                   "library": "SDPA fwd+bwd minus fwd",
+                   "bound_ms": {part: bounds[part][0]
+                                for part in ("dq", "dkv", "bwd")},
+                   "bound_by": {part: bounds[part][1]
+                                for part in ("dq", "dkv", "bwd")}}
+            bwd["kernel_ms"] = bwd["dq_ms"] + bwd["dkv_ms"]
+            emit(bwd)
+            check(all(e <= TOL_GRAD_REL * m for e, m in errs.values()),
+                  f"flash_bwd disagrees with its plain version: {bwd}")
+            rows["bwd"] = bwd
+            del ql, kl, vl, delta
+        out[name] = rows
+        del q, k, v, do, bias, o, lse
+        torch.cuda.empty_cache()
+    return out
+
+
 def _git_base(seed, **overrides):
     cfg = dataclasses.replace(_git_config("microsoft/git-base-msrvtt-qa"),
                               **overrides)
@@ -489,6 +647,334 @@ def phase_train(seed):
     return row, launches
 
 
+def _blip_base(seed):
+    _, model = build_model(BLIP_CFG, dtype=torch.bfloat16, device="cuda",
+                           generator=torch.Generator().manual_seed(seed))
+    return model
+
+
+BLIP_ANSWERS = {f"answer{i}": i for i in range(BLIP_CFG["num_labels"])}
+
+
+def _blip_items(n, seed, labels=False, first_id=0):
+    """n single-question groups over 16 stored 384x384 frames."""
+    rng = np.random.default_rng(seed)
+    questions = ["what is the man doing", "who is playing with the ball",
+                 "what color is the dog", "where is the woman running",
+                 "what is in the video"]
+    shape = (BLIP["stored_frames"], BLIP["img"], BLIP["img"], 3)
+    return [{"vid": rng.standard_normal(shape, dtype=np.float32),
+             "examples": [{"q_str": questions[i % len(questions)],
+                           "label": (int(rng.integers(0, 1000)) if labels
+                                     else None),
+                           "str_label": None,
+                           "question_id": first_id + i}],
+             "n_examples": 1} for i in range(n)]
+
+
+def _vision_qkv_grads(model):
+    return [lyr.self_attn.qkv.weight.grad.abs().sum().item()
+            for lyr in model.vis_model.layers]
+
+
+def phase_blip_serve(n_requests, seed):
+    """QAEngine over the BLIP-base classifier, batch 16, 4 frames of
+    384x384 a request (64 frames, 12 K5 launches a batch)."""
+    t0 = time.perf_counter()
+    model = _blip_base(seed)
+    build_s = time.perf_counter() - t0
+    engine = QAEngine(model, "blip", make_test_wordpiece(),
+                      ans2label=BLIP_ANSWERS, nframe=BLIP["nframe"],
+                      samp_policy="uniform", batch_size=BLIP["batch_size"],
+                      max_txt_len=BLIP["max_txt_len"], device="cuda")
+    items = _blip_items(n_requests, seed)
+    reqs = [(it["vid"], it["examples"][0]["q_str"]) for it in items]
+    n_layers = model.vision_config.num_layers
+    try:
+        engine.answer(*reqs[0], timeout=600)            # warm-up batch
+        torch.cuda.synchronize()
+        before = dict(engine.stats)
+        results = [None] * n_requests
+
+        def client(idx):
+            for i in idx:
+                results[i] = engine.submit(*reqs[i])
+
+        n_clients = 4
+        threads = [threading.Thread(target=client,
+                                    args=(range(c, n_requests, n_clients),))
+                   for c in range(n_clients)]
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        answers = [f.result(timeout=600) for f in results]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(_build.launch_counts)
+        batches = engine.stats["batches"] - before["batches"]
+    finally:
+        engine.close()
+    check(len(answers) == n_requests
+          and all(a["answer"] in BLIP_ANSWERS
+                  and BLIP_ANSWERS[a["answer"]] == a["label"]
+                  for a in answers),
+          "engine did not answer every request from ans2label")
+    check(launches["flash_fwd"] == n_layers * batches
+          and launches["flash_bwd_dq"] == launches["flash_bwd_dkv"] == 0,
+          f"flash_fwd launched {launches['flash_fwd']} times for {batches} "
+          f"batches of {n_layers} vision layers: {launches}")
+
+    direct = []
+    bs = BLIP["batch_size"]
+    with torch.inference_mode():
+        for i in range(0, n_requests, bs):
+            direct += engine._run_batch([(f, q, None)
+                                         for f, q in reqs[i:i + bs]])
+    check(direct == answers, "engine answers differ from _run_batch")
+
+    # the eval forward through K5 vs through plain attention
+    batch = engine._collator(items[:bs], rng=np.random.default_rng(0))
+    ids = torch.from_numpy(batch["text_input_ids"]).long().cuda()
+    mask = torch.from_numpy(batch["text_attention_mask"]).cuda()
+    px = torch.from_numpy(batch["visual_inputs"]).cuda()
+    check(tuple(px.shape) == (bs, BLIP["frames"], BLIP["img"], BLIP["img"],
+                              3), f"serving pixels {tuple(px.shape)}")
+
+    def forward(route):
+        model.vis_model.flash = route
+        with torch.inference_mode():
+            return model(ids, mask, px)["logits"]
+
+    logits_k, logits_p = forward(None), forward(False)
+    torch.cuda.synchronize()
+    err = (logits_k - logits_p).abs().max().item()
+    scale = max(1.0, logits_p.abs().max().item())
+    check(logits_k.shape == (bs, BLIP_CFG["num_labels"])
+          and bool(torch.isfinite(logits_k).all()),
+          "BLIP logits are not finite (16, 1000)")
+    fwd_ms = cuda_ms(lambda: forward(None), reps=5)
+    fwd_plain_ms = cuda_ms(lambda: forward(False), reps=5)
+    model.vis_model.flash = None
+    with torch.inference_mode():
+        flat = px.to(torch.bfloat16).flatten(0, 1)
+        vision_ms = cuda_ms(lambda: model.vis_model(flat), reps=5)
+    row = {"phase": "blip_serve",
+           "model": "blip-base classifier (seeded random weights)",
+           "dtype": "bfloat16", "requests": n_requests, "batches": batches,
+           "batch_size": bs, "frames_per_request": BLIP["frames"],
+           "tokens_per_frame": model.vision_config.tokens_per_frame,
+           "launches": launches, "build_model_s": build_s, "wall_s": wall,
+           "requests_per_s": n_requests / wall,
+           "ms_per_batch": wall / batches * 1e3,
+           "forward_ms": fwd_ms, "forward_plain_route_ms": fwd_plain_ms,
+           "vision_tower_ms": vision_ms,
+           "logits_kernel_vs_plain_max_abs": err,
+           "logits_tol": TOL_LOGITS_REL * scale,
+           "answers_equal_run_batch": True,
+           "sample_answer": answers[0]["answer"]}
+    emit(row)
+    check(err <= TOL_LOGITS_REL * scale,
+          f"BLIP logits: kernel vs plain route {err} > "
+          f"{TOL_LOGITS_REL * scale}")
+    del model, engine
+    torch.cuda.empty_cache()
+    return row, launches
+
+
+def _key_bias(name):
+    return name.endswith(("key.bias", "k_proj.bias"))
+
+
+def _blip_grads(seed, route, dtype, inputs):
+    """Loss, launch counts, f32 gradients and the vision layers' qkv
+    gradient sums of one training forward/backward of BLIP-base."""
+    _, model = build_model(BLIP_CFG, dtype=dtype, device="cuda",
+                           generator=torch.Generator().manual_seed(seed))
+    model.train()
+    model.vis_model.flash = route
+    _build.reset_launch_counts()
+    loss = model(*inputs, deterministic=False,
+                 generator=torch.Generator(device="cuda").manual_seed(
+                     seed))["loss"]
+    loss.backward()
+    torch.cuda.synchronize()
+    out = dict(loss=loss.item(), launches=dict(_build.launch_counts),
+               grads={n: p.grad.float() for n, p in model.named_parameters()
+                      if p.grad is not None},
+               qkv=_vision_qkv_grads(model))
+    del model, loss
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_blip_grad_check(seed):
+    """One training forward/backward of BLIP-base through K5/K6 (bf16)
+    vs the plain route (vision attention on plain autograd, bf16), on the
+    same weights, batch and head-dropout draws, with the plain route in
+    f32 as the oracle that says which gradients bf16 resolves at all."""
+    rng = np.random.default_rng(seed)
+    b, l = BLIP_GRAD_CHECK_ROWS, BLIP["max_txt_len"]
+    ids = torch.from_numpy(rng.integers(1000, 2000, (b, l))).long().cuda()
+    mask = torch.ones_like(ids)
+    mask[1:, 12:] = 0
+    labels = torch.from_numpy(rng.integers(0, 1000, (b,))).long().cuda()
+    px = torch.from_numpy(rng.standard_normal(
+        (b, BLIP["frames"], BLIP["img"], BLIP["img"], 3),
+        dtype=np.float32)).cuda()
+    inputs = (ids, mask, px, labels)
+    kern = _blip_grads(seed, None, torch.bfloat16, inputs)
+    plain = _blip_grads(seed, False, torch.bfloat16, inputs)
+    oracle = _blip_grads(seed, False, torch.float32, inputs)
+    check(set(kern["grads"]) == set(plain["grads"]) == set(oracle["grads"]),
+          "the routes gave gradients to different parameters")
+
+    def rel(g, ref):
+        return ((g - ref).norm() / ref.norm().clamp(min=1e-20)).item()
+
+    # a key projection's bias has a true gradient of 0 (softmax ignores a
+    # constant added to every key): every route gives rounding noise
+    # there, which has no relative error to hold; it is reported apart
+    names = [n for n in kern["grads"] if not _key_bias(n)]
+    kp = {n: rel(kern["grads"][n], plain["grads"][n]) for n in names}
+    pf = {n: rel(plain["grads"][n], oracle["grads"][n]) for n in names}
+    kf = {n: rel(kern["grads"][n], oracle["grads"][n]) for n in names}
+    # a gradient the plain bf16 route itself misses by more than the
+    # tolerance against f32 is not resolved in bf16 (cancellation in the
+    # deep random text stack): there the kernel route must be no further
+    # from f32 than twice the plain route; everywhere else within the
+    # tolerance of the plain route
+    unresolved = [n for n in names if pf[n] > TOL_PARAM_GRAD_REL]
+    failed = [n for n in names
+              if kp[n] > TOL_PARAM_GRAD_REL
+              and not (n in unresolved and kf[n] <= 2 * pf[n])]
+    resolved = [n for n in names if n not in unresolved]
+    worst = max(resolved, key=kp.get)
+    vision = [n for n in names if n.startswith("vis_model.")]
+    loss_rel = abs(kern["loss"] - plain["loss"]) / abs(plain["loss"])
+    row = {"phase": "blip_grad_check", "rows": b,
+           "frames": b * BLIP["frames"],
+           "loss_kernel": kern["loss"], "loss_plain": plain["loss"],
+           "loss_f32": oracle["loss"],
+           "loss_rel_err": loss_rel, "tol_loss_rel": TOL_LOSS_REL,
+           "params_compared": len(names),
+           "grad_rel_err_max_resolved": kp[worst],
+           "grad_rel_err_worst_resolved": worst,
+           "grad_rel_err_median": float(np.median(list(kp.values()))),
+           "vision_grad_rel_err_max": max(kp[n] for n in vision),
+           "vision_grad_rel_err_median": float(np.median(
+               [kp[n] for n in vision])),
+           # how far each bf16 route is from the f32 oracle
+           "median_vs_f32": {
+               route: {"all": float(np.median([d[n] for n in names])),
+                       "vision": float(np.median([d[n] for n in vision]))}
+               for route, d in (("kernel", kf), ("plain", pf))},
+           "bf16_unresolved": {n: {"kernel_vs_plain": kp[n],
+                                   "plain_vs_f32": pf[n],
+                                   "kernel_vs_f32": kf[n]}
+                               for n in unresolved},
+           "failed": failed,
+           "key_bias_grad_abs_max": max(
+               kern["grads"][n].abs().max().item()
+               for n in kern["grads"] if _key_bias(n)),
+           "tol_grad_rel": TOL_PARAM_GRAD_REL,
+           "launches_kernel_route": kern["launches"],
+           "launches_plain_route": plain["launches"],
+           "vision_qkv_grad_abs_sum": kern["qkv"]}
+    emit(row)
+    n_layers = len(kern["qkv"])
+    check(all(kern["launches"][k] == n_layers
+              for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"))
+          and not any(plain["launches"].values()),
+          f"the kernel route did not launch K5/K6 once a layer: {row}")
+    check(all(x > 0 for x in kern["qkv"]),
+          "a vision layer's qkv.weight got no gradient on the kernel route")
+    check(loss_rel <= TOL_LOSS_REL and not failed,
+          f"BLIP kernel route gradients disagree with the plain route: "
+          f"{row}")
+    del kern, plain, oracle
+    torch.cuda.empty_cache()
+
+
+def _blip_train_batch(seed):
+    """K stacked ClassifierCollator micro-batches of 8 labelled questions,
+    4 of 16 stored frames each (uniform)."""
+    collator = ClassifierCollator(make_test_wordpiece(),
+                                  max_txt_len=BLIP["max_txt_len"],
+                                  nframe=BLIP["nframe"],
+                                  samp_policy="uniform")
+    micros = [collator(_blip_items(BLIP_TRAIN["batch_size"], seed + m,
+                                   labels=True, first_id=100 * m))
+              for m in range(BLIP_TRAIN["k_micro"])]
+    return next(stack_microbatches(iter(micros), BLIP_TRAIN["k_micro"]))
+
+
+def phase_blip_train(seed):
+    """make_scan_train_step(family="classifier") at BLIP-base width: 4
+    micros of 8 questions over 4 frames, adam, head dropout 0.1: warm-up,
+    then timed updates on one repeated batch."""
+    t0 = time.perf_counter()
+    model = _blip_base(seed)
+    batch = _blip_train_batch(seed)
+    k, b = BLIP_TRAIN["k_micro"], BLIP_TRAIN["batch_size"]
+    check(batch["visual_inputs"].shape[:3] == (k, b, BLIP["frames"]),
+          f"BLIP train batch {batch['visual_inputs'].shape}")
+    state = create_train_state(model, BLIP_TRAIN["optim"], total_steps=100,
+                               device="cuda")
+    step = make_scan_train_step(k, "classifier", device="cuda")
+    setup_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    losses, gnorms, acc = [], [], []
+
+    def update():
+        nonlocal state
+        state, m = step(state, batch, seed)
+        losses.append(m["loss"].item())
+        gnorms.append(m["grad_norm"].item())
+        acc.append([int(m["acc_correct"]), int(m["acc_total"])])
+
+    for _ in range(BLIP_TRAIN["warmup_updates"]):
+        update()
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    for _ in range(BLIP_TRAIN["timed_updates"]):
+        update()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_build.launch_counts)
+    micros = k * BLIP_TRAIN["timed_updates"]
+    qkv = _vision_qkv_grads(model)
+    row = {"phase": "blip_train",
+           "model": "blip-base classifier (seeded random weights)",
+           "dtype": "bfloat16 activations, f32 params", "batch_size": b,
+           "k_micro": k, "frames": BLIP["frames"],
+           "frames_per_micro": b * BLIP["frames"],
+           "hidden_dropout": model.head.hidden_dropout_prob,
+           "optim": BLIP_TRAIN["optim"], "setup_s": setup_s,
+           "updates_timed": BLIP_TRAIN["timed_updates"], "wall_s": wall,
+           "ms_per_update": wall / BLIP_TRAIN["timed_updates"] * 1e3,
+           "qa_pairs_per_s": micros * b / wall,
+           "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 2**30,
+           "loss": losses, "grad_norm": gnorms, "acc_correct_total": acc,
+           "launches": launches, "vision_qkv_grad_abs_sum": qkv,
+           "micro_steps": state.step}
+    emit(row)
+    n = model.vision_config.num_layers * micros
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"BLIP loss is not finite and falling: {losses}")
+    check(all(launches[name] == n for name in
+              ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")),
+          f"BLIP train launches {launches}, expected {n} of K5 and K6")
+    check(all(x > 0 for x in qkv),
+          "a vision layer's qkv.weight got no gradient")
+    del state, model, step
+    torch.cuda.empty_cache()
+    return row, launches
+
+
 def _requests(n, seed):
     rng = np.random.default_rng(seed)
     questions = ["what is the man doing", "who is playing with the ball",
@@ -522,9 +1008,27 @@ def phase_small_reference():
     tg = greedy_generate(gpu, ids, plen, px, max_text_len=12, device="cuda")
     tc = greedy_generate(cpu, ids, plen, px, max_text_len=12, device="cpu")
     same = bool(torch.equal(tg.cpu(), tc))
+    # tiny BLIP classifier, two questions a video: logits and loss
+    cfg = {"model": {"pretrained_model": "tiny-blip"}, "img_size": 32,
+           "num_labels": 7, "classifier": "mlp"}
+    outs = []
+    for dev in ("cuda", "cpu"):
+        _, blip = build_model(cfg, device=dev,
+                              generator=torch.Generator().manual_seed(1))
+        with torch.inference_mode():
+            outs.append(blip(
+                torch.from_numpy(ids).long().to(dev),
+                (torch.arange(8)[None, :] < torch.from_numpy(plen)[:, None]
+                 .clamp(min=1)).to(dev),
+                torch.from_numpy(px[:2]).to(dev),
+                labels=torch.tensor([0, 3, 6, 1], device=dev)))
+    err_blip = max((outs[0][key].cpu() - outs[1][key]).abs().max().item()
+                   for key in ("logits", "loss"))
     emit({"phase": "small_reference", "max_abs_err_logits": err,
-          "tol": TOL_F32, "greedy_tokens_equal": same})
-    check(err <= TOL_F32 and same, "GPU port disagrees with the CPU port")
+          "tol": TOL_F32, "greedy_tokens_equal": same,
+          "blip_max_abs_err_logits_loss": err_blip})
+    check(err <= TOL_F32 and same and err_blip <= TOL_F32,
+          "GPU port disagrees with the CPU port")
 
 
 def phase_slice(n_requests, seed):
@@ -647,6 +1151,11 @@ def phase_slice(n_requests, seed):
     return row, launches
 
 
+PATHS = ("git_serve", "git_train", "blip_serve", "blip_train")
+KERNELS = ("git_flash_fwd", "git_flash_bwd", _build.HASH_DROPOUT,
+           "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -661,11 +1170,40 @@ def main() -> int:
     train_rows = phase_train_kernels(
         [(TRAIN["batch_size"], 12, TRAIN["frames"] * tpf,
           TRAIN["max_seq_len"], 64), (2, 12, 3 * tpf, 13, 64)], rate)
+    btok = 577
+    flash_rows = phase_flash_kernels({
+        # BLIP-base vision self-attention: serving (64 frames) and
+        # training (32 frames a micro)
+        "blip_serve": (BLIP["batch_size"] * BLIP["frames"], 12, btok, btok,
+                       None, False),
+        "blip_train": (BLIP_TRAIN["batch_size"] * BLIP["frames"], 12, btok,
+                       btok, None, True),
+        # rectangular: text-length queries over 4 frames' tokens with key
+        # padding, and the GIT combined mask as a 2-D bias (3 frames)
+        "rect_row_bias": (8, 12, 520, 4 * btok, "row", True),
+        "git_mask_2d_bias": (2, 12, 3 * tpf + 13, 3 * tpf + 13, "git_mask",
+                             True)})
     phase_small_reference()
-    slice_row, serve_launches = phase_slice(SLICE["requests"],
-                                            SLICE["seed"])
+    slice_row, git_serve = phase_slice(SLICE["requests"], SLICE["seed"])
     phase_grad_check(SLICE["seed"])
-    train_row, train_launches = phase_train(TRAIN["seed"])
+    train_row, git_train = phase_train(TRAIN["seed"])
+    blip_serve_row, blip_serve = phase_blip_serve(BLIP["requests"],
+                                                  BLIP["seed"])
+    phase_blip_grad_check(BLIP["seed"])
+    blip_train_row, blip_train = phase_blip_train(BLIP_TRAIN["seed"])
+
+    by_path = {name: dict(zip(PATHS, (counts.get(name, 0) for counts in
+                                      (git_serve, git_train, blip_serve,
+                                       blip_train))))
+               for name in KERNELS}
+    needed = {"git_serve": ("git_flash_fwd",),
+              "git_train": ("git_flash_fwd", "git_flash_bwd",
+                            _build.HASH_DROPOUT),
+              "blip_serve": ("flash_fwd",),
+              "blip_train": ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+    check(all(by_path[k][path] > 0 for path, ks in needed.items()
+              for k in ks),
+          f"a kernel of a path was not launched: {by_path}")
 
     serve, main_t = kernel_rows[0], train_rows[0]
     fwd, bwd0, bwd = main_t["fwd"], main_t["bwd_0.0"], main_t[f"bwd_{rate}"]
@@ -674,22 +1212,41 @@ def main() -> int:
                + (bwd["kernel_ms"] - bwd0["kernel_ms"]))
     hash_bound = roofline(2 * HASH_OPS_PER_PAIR * main_t["pairs"], 4,
                           PEAK_SCALAR_OPS)
-    by_path = {name: {"serve": serve_launches.get(name, 0),
-                      "train": train_launches[name]}
-               for name in ("git_flash_fwd", "git_flash_bwd",
-                            _build.HASH_DROPOUT)}
-    check(by_path["git_flash_fwd"]["serve"] > 0
-          and all(v["train"] > 0 for v in by_path.values()),
-          f"a kernel of a path was not launched: {by_path}")
     grad_err = max(max(r["max_abs_err"].values())
                    for t in train_rows for r in (t["bwd_0.0"],
                                                  t[f"bwd_{rate}"]))
+    k5_serve = flash_rows["blip_serve"]["fwd"]
+    k5_train = flash_rows["blip_train"]["fwd"]
+    k6 = flash_rows["blip_train"]["bwd"]
+    k6_rows = [r["bwd"] for r in flash_rows.values() if "bwd" in r]
+
+    def launches(name):
+        return {"launches": sum(by_path[name].values()),
+                "launches_by_path": by_path[name]}
+
+    def k6_entry(part, name, what):
+        return {"name": name, "route": "cuda",
+                "source": "sasvqa_torch/ops/csrc/flash_bwd.cu",
+                "replaces": what, **launches(name),
+                "max_abs_err": max(r["max_abs_err"][p] for r in k6_rows
+                                   for p in (("dq",) if part == "dq"
+                                             else ("dk", "dv"))),
+                "ms": k6[f"{part}_ms"], "plain_ms": k6["plain_ms"],
+                "bound_ms": k6["bound_ms"][part],
+                "bound_by": k6["bound_by"][part],
+                "library_ms": k6["library_ms"],
+                "at": "BLIP-base training shape (32, 12, 577, 64); plain and "
+                      "library times are of the whole backward",
+                "whole_backward": {"ms": k6["kernel_ms"],
+                                   "bound_ms": k6["bound_ms"]["bwd"],
+                                   "bound_by": k6["bound_by"]["bwd"]},
+                "card": smi}
+
     emit({"kernels": [{
         "name": "git_flash_fwd", "route": "cuda",
         "source": "sasvqa_torch/ops/csrc/git_flash_fwd.cu",
         "replaces": "sasvqa_tpu/ops/git_flash.py:237 (_fwd_kernel)",
-        "launches": sum(by_path["git_flash_fwd"].values()),
-        "launches_by_path": by_path["git_flash_fwd"],
+        **launches("git_flash_fwd"),
         "max_abs_err": max([r["max_abs_err_o"] for r in kernel_rows]
                            + [t["fwd"]["max_abs_err_o"] for t in train_rows]),
         "ms": fwd["kernel_ms"], "plain_ms": fwd["plain_ms"],
@@ -708,8 +1265,7 @@ def main() -> int:
         "name": "git_flash_bwd", "route": "cuda",
         "source": "sasvqa_torch/ops/csrc/git_flash_bwd.cu",
         "replaces": "sasvqa_tpu/ops/git_flash.py:421 (_fused_bwd_kernel)",
-        "launches": sum(by_path["git_flash_bwd"].values()),
-        "launches_by_path": by_path["git_flash_bwd"],
+        **launches("git_flash_bwd"),
         "max_abs_err": grad_err,
         "ms": bwd["kernel_ms"], "plain_ms": bwd["plain_ms"],
         "bound_ms": bwd["bound_ms"], "bound_by": bwd["bound_by"],
@@ -722,14 +1278,34 @@ def main() -> int:
         "source": "sasvqa_torch/ops/csrc/git_flash_common.cuh",
         "replaces": "sasvqa_tpu/ops/git_flash.py:136 (_hash_keep, "
                     "_dropout_block), inside K1 and K2",
-        "launches": sum(by_path[_build.HASH_DROPOUT].values()),
-        "launches_by_path": by_path[_build.HASH_DROPOUT],
+        **launches(_build.HASH_DROPOUT),
         "max_abs_err": fwd["max_abs_err_o"],
         "ms": hash_ms, "plain_ms": main_t["hash_plain_ms"],
         "bound_ms": hash_bound[0], "bound_by": hash_bound[1],
         "library_ms": None,
         "at": "training shape: K1 + K2 time at the rate minus at rate 0",
-        "card": smi}]})
+        "card": smi}, {
+        "name": "flash_fwd", "route": "cuda",
+        "source": "sasvqa_torch/ops/csrc/flash_fwd.cu",
+        "replaces": "sasvqa_tpu/ops/flash_attention.py:64 (_flash_core)",
+        **launches("flash_fwd"),
+        "max_abs_err": max(r["fwd"]["max_abs_err_o"]
+                           for r in flash_rows.values()),
+        "ms": k5_serve["kernel_ms"], "plain_ms": k5_serve["plain_ms"],
+        "bound_ms": k5_serve["bound_ms"], "bound_by": k5_serve["bound_by"],
+        "library_ms": k5_serve["library_ms"],
+        "at": "BLIP-base serving shape (64, 12, 577, 64), no bias",
+        "training": {key: k5_train[key] for key in
+                     ("kernel_ms", "plain_ms", "bound_ms", "library_ms")},
+        "kernel_share_of_serving_forward": (
+            blip_serve_row["launches"]["flash_fwd"]
+            / blip_serve_row["batches"] * k5_serve["kernel_ms"]
+            / blip_serve_row["forward_ms"]),
+        "card": smi},
+        k6_entry("dq", "flash_bwd_dq",
+                 "sasvqa_tpu/ops/flash_attention.py:246 (_dq_core)"),
+        k6_entry("dkv", "flash_bwd_dkv",
+                 "sasvqa_tpu/ops/flash_attention.py:284 (_dkv_core)")]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

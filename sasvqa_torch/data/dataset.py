@@ -1,4 +1,5 @@
-"""GIT batch collator (counterpart of sasvqa_tpu/data/dataset.py).
+"""Batch collators (counterpart of sasvqa_tpu/data/dataset.py): GIT
+generative batches and CLIP/BLIP classification batches.
 
 Text pads to a fixed ``max_txt_len``; frames are re-sampled on the host
 by sampling/policies.py into a static (B_groups, T, H, W, C) array.
@@ -8,7 +9,7 @@ package's ``"bf16"`` host staging needs ``ml_dtypes`` and is not ported.
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Mapping, Optional, Sequence
 
 import numpy as np
 
@@ -79,6 +80,51 @@ def _check_uniform_groups(n_examples: Sequence[int]) -> None:
         raise ValueError(
             f"non-uniform group sizes {sorted(set(n_examples))}; "
             "mk_input_group with pad_to_divisible produces uniform groups")
+
+
+class ClassifierCollator:
+    """CLIP / BLIP classification batches: the question (or, for the
+    TGIF ``action``/``transition`` tasks, question + option, one row per
+    option) padded to ``max_txt_len``, integer labels when the examples
+    carry them."""
+
+    def __init__(self, tokenizer, max_txt_len: int = 20,
+                 task_type: str = "msvd_qa", n_options: int = 5,
+                 nframe: int = 4, samp_policy: str = "random",
+                 pixel_dtype: str = "f32"):
+        self.tokenizer = tokenizer
+        self.max_txt_len = max_txt_len
+        self.task_type = task_type
+        self.n_options = n_options
+        self.nframe = nframe
+        self.samp_policy = samp_policy
+        self.pixel_dtype = _pixel_dtype(pixel_dtype)
+
+    def __call__(self, items: List[Dict[str, Any]],
+                 rng: Optional[np.random.Generator] = None,
+                 ) -> Dict[str, Any]:
+        visual = _resample_frames(items, self.samp_policy, self.nframe,
+                                  rng, out_dtype=self.pixel_dtype)
+        examples, n_examples = _flatten_examples(items)
+        _check_uniform_groups(n_examples)
+        if self.task_type in ("action", "transition"):
+            texts = [f"{d['q_str']} {d['options_str_list'][i]}"
+                     for d in examples for i in range(self.n_options)]
+        else:
+            texts = [d["q_str"] for d in examples]
+        enc = self.tokenizer(texts, max_length=self.max_txt_len)
+        labels = None
+        if examples[0]["label"] is not None:
+            labels = np.asarray([int(d["label"]) for d in examples],
+                                dtype=np.int32)
+        return dict(
+            visual_inputs=visual,
+            text_input_ids=enc["input_ids"],
+            text_attention_mask=enc["attention_mask"],
+            labels=labels,
+            question_ids=[d["question_id"] for d in examples],
+            n_examples_list=n_examples,
+        )
 
 
 class GITCollator:
@@ -174,3 +220,29 @@ class GITCollator:
             question_ids=[d["question_id"] for d in examples],
             n_examples_list=n_examples,
         )
+
+
+def pixel_dtype_for(cfg: Mapping[str, Any]) -> str:
+    """``"u8"`` under ``stage_pixels_u8``, else ``"f32"``.  Where the JAX
+    package stages bf16 on the host, the port stages f32: the model's
+    first product rounds the pixels to bf16 on the device, to the same
+    values."""
+    return "u8" if cfg.get("stage_pixels_u8", 0) else "f32"
+
+
+def make_collator(family: str, tokenizer, cfg: Mapping[str, Any]):
+    """The training collator of a model family, from a task config."""
+    common = dict(max_txt_len=cfg.get("max_txt_len", 20),
+                  task_type=cfg.get("task", "msvd_qa"),
+                  nframe=cfg.get("nframe", 4),
+                  samp_policy=cfg.get("samp_policy", "random"),
+                  pixel_dtype=pixel_dtype_for(cfg))
+    if family in ("clip", "blip"):
+        return ClassifierCollator(tokenizer, **common)
+    if family == "git":
+        return GITCollator(tokenizer, add_ans=True,
+                           max_seq_len=cfg.get("max_seq_len",
+                                               common["max_txt_len"] + 12),
+                           **common)
+    raise ValueError(family)
+

@@ -8,7 +8,8 @@ sasvqa_tpu/models/convert.py):
 - ``scale``             -> ``weight``   (LayerNorm)
 - ``embedding``         -> ``weight``   (Embed)
 - ``bias``              -> ``bias``
-- ``class_embedding``   -> itself
+- ``class_embedding``, ``position_embedding`` (raw parameters, BLIP's
+  vision tower) -> themselves
 """
 
 from __future__ import annotations
@@ -39,7 +40,7 @@ def state_dict_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
                 out[f"{prefix}.weight"] = tensor(np.asarray(val).T)
             elif key in ("scale", "embedding"):
                 out[f"{prefix}.weight"] = tensor(val)
-            elif key in ("bias", "class_embedding"):
+            elif key in ("bias", "class_embedding", "position_embedding"):
                 out[path] = tensor(val)
             else:
                 raise KeyError(f"no conversion rule for Flax leaf {path!r}")

@@ -252,9 +252,9 @@ class GITForCausalLM(nn.Module):
                          ) -> Dict[str, Any]:
         """Attention arguments of the text-stack layers: the git-flash
         route, or the dense additive-bias route.  ``flash=False`` runs the
-        dense route with plain attention at any length (the JAX package
-        would send a long dense route to its generic flash kernel on the
-        TPU, which the port does not have yet, ROADMAP K5)."""
+        dense route with plain attention at any length, the oracle the
+        git-flash route is checked against (the JAX package would send a
+        long dense route to its generic flash kernel)."""
         if self._use_git_flash(m + attention_mask.shape[1],
                                attention_mask.device):
             return {"bias": None, "git_mask": (m, attention_mask)}

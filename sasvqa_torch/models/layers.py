@@ -104,9 +104,10 @@ class Embed(nn.Module):
 @torch.no_grad()
 def init_params(module: nn.Module, generator: torch.Generator) -> None:
     """Seeded init with the Flax defaults: Dense kernels lecun-normal,
-    biases 0, LayerNorm 1/0, embeddings normal(1/sqrt(features)), a
-    ``class_embedding`` normal(0.02).  Draws come from ``generator`` in
-    module order, so a seed fixes every weight."""
+    biases 0, LayerNorm 1/0, embeddings normal(1/sqrt(features)), a raw
+    ``class_embedding`` or ``position_embedding`` parameter normal(0.02).
+    Draws come from ``generator`` in module order, so a seed fixes every
+    weight."""
     for m in module.modules():
         if isinstance(m, Dense):
             std = 1.0 / math.sqrt(m.weight.shape[1]) / _TRUNC_STD
@@ -121,7 +122,7 @@ def init_params(module: nn.Module, generator: torch.Generator) -> None:
             nn.init.normal_(m.weight, std=m.weight.shape[1] ** -0.5,
                             generator=generator)
         for name, p in m.named_parameters(recurse=False):
-            if name == "class_embedding":
+            if name in ("class_embedding", "position_embedding"):
                 nn.init.normal_(p, std=0.02, generator=generator)
 
 
@@ -161,6 +162,35 @@ def merge_heads(x: torch.Tensor) -> torch.Tensor:
     """(B, H, L, Dh) -> (B, L, D)"""
     b, h, l, dh = x.shape
     return x.transpose(1, 2).reshape(b, l, h * dh)
+
+
+class MultiHeadAttention(nn.Module):
+    """Multi-head attention with separate q/k/v/out projections.
+
+    ``kv_states`` (width ``kv_size``, default ``hidden_size``) enables
+    cross-attention; ``bias`` is additive, broadcastable to
+    (B, H, Lq, Lk)."""
+
+    def __init__(self, hidden_size: int, num_heads: int,
+                 kv_size: Optional[int] = None,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.num_heads = num_heads
+        kv_size = kv_size or hidden_size
+        self.q_proj = Dense(hidden_size, hidden_size, dtype=dtype)
+        self.k_proj = Dense(kv_size, hidden_size, dtype=dtype)
+        self.v_proj = Dense(kv_size, hidden_size, dtype=dtype)
+        self.out_proj = Dense(hidden_size, hidden_size, dtype=dtype)
+
+    def forward(self, hidden: torch.Tensor,
+                kv_states: Optional[torch.Tensor] = None,
+                bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+        kv = hidden if kv_states is None else kv_states
+        out = dot_product_attention(
+            split_heads(self.q_proj(hidden), self.num_heads),
+            split_heads(self.k_proj(kv), self.num_heads),
+            split_heads(self.v_proj(kv), self.num_heads), bias=bias)
+        return self.out_proj(merge_heads(out))
 
 
 class FusedSelfAttention(nn.Module):
@@ -237,6 +267,82 @@ class BertFFN(nn.Module):
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         h = ACT2FN[self.activation](self.intermediate(x))
         return self.ln(x + self.drop(self.output(h), generator))
+
+
+class BertSelfAttention(nn.Module):
+    """BERT attention sub-block: MHA -> dense -> dropout -> +res -> LN.
+
+    ``kv_size`` is the width of ``kv_states`` for cross-attention
+    (default ``hidden_size``); ``key``/``value`` project it into the
+    QUERY side's width, as HF BertSelfAttention does (blip-large's
+    1024-wide vision under a 768-wide text stack)."""
+
+    def __init__(self, hidden_size: int, num_heads: int,
+                 layer_norm_eps: float = 1e-12, dropout_rate: float = 0.0,
+                 kv_size: Optional[int] = None,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.num_heads = num_heads
+        kv_size = kv_size or hidden_size
+        self.query = Dense(hidden_size, hidden_size, dtype=dtype)
+        self.key = Dense(kv_size, hidden_size, dtype=dtype)
+        self.value = Dense(kv_size, hidden_size, dtype=dtype)
+        self.out_dense = Dense(hidden_size, hidden_size, dtype=dtype)
+        self.drop = Dropout(dropout_rate)
+        self.out_ln = LayerNorm(hidden_size, layer_norm_eps, dtype)
+
+    def project_kv(self, hidden: torch.Tensor):
+        """K/V heads of ``hidden``, projected into the query width."""
+        return (split_heads(self.key(hidden), self.num_heads),
+                split_heads(self.value(hidden), self.num_heads))
+
+    def forward(self, hidden: torch.Tensor,
+                bias: Optional[torch.Tensor] = None,
+                kv_states: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
+        q = split_heads(self.query(hidden), self.num_heads)
+        k, v = self.project_kv(hidden if kv_states is None else kv_states)
+        ctx = merge_heads(dot_product_attention(q, k, v, bias=bias))
+        out = self.drop(self.out_dense(ctx), generator)
+        return self.out_ln(hidden + out)
+
+
+class PostLNBlock(nn.Module):
+    """BERT-style encoder layer (BLIP text): self-attention, an optional
+    cross-attention sub-block over ``encoder_hidden`` (width
+    ``encoder_width``), then the FFN."""
+
+    def __init__(self, hidden_size: int, num_heads: int,
+                 intermediate_size: int, activation: str = "gelu",
+                 layer_norm_eps: float = 1e-12, dropout_rate: float = 0.0,
+                 cross_attention: bool = False,
+                 encoder_width: Optional[int] = None,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.attention = BertSelfAttention(hidden_size, num_heads,
+                                           layer_norm_eps, dropout_rate,
+                                           dtype=dtype)
+        self.crossattention = (
+            BertSelfAttention(hidden_size, num_heads, layer_norm_eps,
+                              dropout_rate, kv_size=encoder_width,
+                              dtype=dtype) if cross_attention else None)
+        self.ffn = BertFFN(hidden_size, intermediate_size, activation,
+                           layer_norm_eps, dtype, dropout_rate)
+
+    def forward(self, x: torch.Tensor, bias: Optional[torch.Tensor] = None,
+                encoder_hidden: Optional[torch.Tensor] = None,
+                encoder_bias: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        x = self.attention(x, bias=bias, generator=generator)
+        if self.crossattention is not None:
+            if encoder_hidden is None:
+                raise ValueError("a cross-attention layer needs "
+                                 "encoder_hidden")
+            x = self.crossattention(x, bias=encoder_bias,
+                                    kv_states=encoder_hidden,
+                                    generator=generator)
+        return self.ffn(x, generator)
 
 
 class PatchEmbed(nn.Module):

@@ -1,0 +1,119 @@
+"""Classifier video-QA models (counterpart of sasvqa_tpu/models/video_qa.py,
+BLIP family): the loss selection of the reference's ``calc_loss`` and
+:class:`BLIPVideoQA`.
+
+Models take a fixed-shape frame tensor (B, T, H, W, C); ``input_ids`` may
+hold several examples per video (B a multiple of the video count), and the
+encoded video repeats after the encoder, so the ViT runs once per video.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from sasvqa_torch.core.pixels import maybe_dequantize
+from sasvqa_torch.models.blip import (BLIPTextConfig, BLIPTextEncoder,
+                                      BLIPVisionConfig, BLIPVisionEncoder)
+from sasvqa_torch.models.fusion import AnswerClassifier
+from sasvqa_torch.models.layers import init_params
+
+
+def classification_loss(logits: torch.Tensor, labels: torch.Tensor,
+                        loss_type: str = "ce") -> torch.Tensor:
+    """ce (labels of -100 ignored) / bce (mean times num_labels) / mse."""
+    if loss_type == "ce":
+        valid = labels != -100
+        safe = torch.where(valid, labels, torch.zeros_like(labels)).long()
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        nll = -torch.gather(logp, -1, safe[:, None])[:, 0]
+        return (nll * valid).sum() / valid.sum().clamp(min=1)
+    if loss_type == "bce":
+        labels = labels.float()
+        per = -(labels * F.logsigmoid(logits)
+                + (1 - labels) * F.logsigmoid(-logits))
+        return per.mean() * logits.shape[1]
+    if loss_type == "mse":
+        return torch.mean((logits.reshape(-1) - labels.reshape(-1)) ** 2)
+    raise ValueError(f"unknown loss_type {loss_type}")
+
+
+@dataclasses.dataclass(frozen=True)
+class ClassifierHeadConfig:
+    num_labels: int = 1000
+    loss_type: str = "ce"
+    classifier: str = "linear"
+    cls_hidden_scale: int = 2
+    hidden_dropout_prob: float = 0.1
+    attn_type: str = "dec-only"  # reference variants: enc-dec, dec-cas
+
+
+class BLIPVideoQA(nn.Module):
+    """BLIP vision + multimodal text encoder + fusion classifier.
+
+    The text encoder cross-attends to the flattened (B, T*P, D) frame
+    tokens; the fusion head reads the per-frame pooled CLS embeddings.
+    Weights are drawn from ``generator`` (default: seeded with 0)."""
+
+    def __init__(self, text_config: BLIPTextConfig,
+                 vision_config: BLIPVisionConfig, head: ClassifierHeadConfig,
+                 dtype: torch.dtype = torch.float32,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        gen = generator if generator is not None \
+            else torch.Generator().manual_seed(0)
+        self.text_config = text_config
+        self.vision_config = vision_config
+        self.head = head
+        self.dtype = dtype
+        self.txt_model = BLIPTextEncoder(text_config, dtype=dtype,
+                                         generator=gen)
+        self.vis_model = BLIPVisionEncoder(vision_config, dtype=dtype,
+                                           generator=gen)
+        self.answer_head = AnswerClassifier(
+            text_config.hidden_size, head.num_labels,
+            vis_size=vision_config.hidden_size,
+            dropout_rate=head.hidden_dropout_prob,
+            classifier=head.classifier,
+            cls_hidden_scale=head.cls_hidden_scale,
+            attn_type=head.attn_type, dtype=dtype)
+        init_params(self.answer_head, gen)
+
+    def forward(self, input_ids: torch.Tensor, attention_mask: torch.Tensor,
+                pixel_values: torch.Tensor,
+                labels: Optional[torch.Tensor] = None,
+                deterministic: bool = True,
+                generator: Optional[torch.Generator] = None
+                ) -> Dict[str, torch.Tensor]:
+        """input_ids/attention_mask (B, L); pixel_values (Bv, T, H, W, C)
+        with B a multiple of Bv (u8-staged pixels are dequantized);
+        labels (B,).  Returns f32 ``logits`` (B, num_labels) and, with
+        labels, the ``loss``.  ``deterministic=False`` applies the
+        dropouts, drawn from ``generator`` (required then)."""
+        if not deterministic and generator is None:
+            raise ValueError("deterministic=False needs a dropout generator")
+        gen = None if deterministic else generator
+        pixel_values = maybe_dequantize(pixel_values, self.dtype)
+        b, t = pixel_values.shape[:2]
+        repeat = input_ids.shape[0] // b
+        vis_hidden, vis_pooled = self.vis_model(
+            pixel_values.reshape((b * t,) + tuple(pixel_values.shape[2:])))
+        p, d = vis_hidden.shape[-2:]
+        enc_hidden = vis_hidden.reshape(b, t * p, d)
+        vis = vis_pooled.reshape(b, t, -1)
+        if repeat > 1:
+            enc_hidden = enc_hidden.repeat_interleave(repeat, dim=0)
+            vis = vis.repeat_interleave(repeat, dim=0)
+        txt_hidden, _ = self.txt_model(input_ids, attention_mask,
+                                       encoder_hidden=enc_hidden,
+                                       generator=gen)
+        logits = self.answer_head(txt_hidden, attention_mask, vis, gen)
+        out = {"logits": logits}
+        if labels is not None:
+            out["loss"] = classification_loss(logits, labels,
+                                              self.head.loss_type)
+        return out

@@ -11,7 +11,9 @@ once.
 ``launch_counts`` holds one integer per kernel.  A wrapper adds one where
 it launches its kernel and nowhere else, so a run can show that its main
 path went through the kernels.  ``HASH_DROPOUT`` counts the launches of
-K1 and K2 that ran the in-kernel dropout hash (``rate`` > 0).
+K1 and K2 that ran the in-kernel dropout hash (``rate`` > 0).  The
+library ``flash_bwd`` holds two kernels, counted apart as
+``flash_bwd_dq`` and ``flash_bwd_dkv``.
 """
 
 from __future__ import annotations
@@ -32,14 +34,17 @@ BUILD_DIR = os.path.join(_HERE, "build")
 
 # kernel name -> source file under csrc/
 SOURCES = {"git_flash_fwd": "git_flash_fwd.cu",
-           "git_flash_bwd": "git_flash_bwd.cu"}
+           "git_flash_bwd": "git_flash_bwd.cu",
+           "flash_fwd": "flash_fwd.cu",
+           "flash_bwd": "flash_bwd.cu"}
 HASH_DROPOUT = "hash_dropout"
+COUNTERS = ("git_flash_fwd", "git_flash_bwd", HASH_DROPOUT, "flash_fwd",
+            "flash_bwd_dq", "flash_bwd_dkv")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-launch_counts: Dict[str, int] = {name: 0 for name in (*SOURCES,
-                                                        HASH_DROPOUT)}
+launch_counts: Dict[str, int] = {name: 0 for name in COUNTERS}
 # nvcc's output per kernel from the last build in this process
 # (-Xptxas -v: registers, shared memory, spills)
 build_logs: Dict[str, str] = {}
@@ -145,3 +150,22 @@ def load(name: str) -> ctypes.CDLL:
                 lib = ctypes.CDLL(library_path(name))
                 _libs[name] = lib
     return lib
+
+
+def raise_on_error(name: str, err: int) -> None:
+    """Raise if the C launcher of library ``name`` returned a CUDA error
+    (a refused launch never runs, and a later synchronize does not report
+    it)."""
+    if err != 0:
+        fn = load(name).kernel_error_string
+        fn.restype = ctypes.c_char_p
+        fn.argtypes = [ctypes.c_int]
+        raise RuntimeError(f"{name} launch failed: " + fn(err).decode())
+
+
+def kernel_ready(x):
+    """A bf16 (B, H, S, 64) view the kernels can read through its strides:
+    unit stride on Dh, 16-byte aligned rows.  Anything else is copied."""
+    aligned = (x.stride(-1) == 1 and x.data_ptr() % 16 == 0
+               and all(st % 8 == 0 for st in x.stride()[:-1]))
+    return x if aligned else x.contiguous()

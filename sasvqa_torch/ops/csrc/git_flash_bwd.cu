@@ -50,42 +50,6 @@ namespace {
 constexpr int BM = 64;         // queries per streamed tile
 constexpr int BN = 64;         // keys per CTA
 constexpr int NTHREADS = 128;  // 4 warps
-constexpr int DELTA_ROWS = 16;  // rows per block of the D prologue
-
-// D[b, h, r] = sum_d dO[r, d] * O[r, d] in f32; 8 threads per row
-__global__ void __launch_bounds__(NTHREADS)
-git_flash_bwd_delta_kernel(const __nv_bfloat16* __restrict__ o,
-                           const __nv_bfloat16* __restrict__ dout,
-                           float* __restrict__ delta, int H, int S,
-                           long long o_sb, long long o_sh, long long o_ss,
-                           long long do_sb, long long do_sh,
-                           long long do_ss) {
-  const int tid = threadIdx.x;
-  const int r = blockIdx.x * DELTA_ROWS + tid / 8;
-  const int c = (tid % 8) * 8;
-  const int bh = blockIdx.y;
-  const int b = bh / H;
-  const int h = bh % H;
-  float acc = 0.f;
-  if (r < S) {
-    const uint4 ov = *reinterpret_cast<const uint4*>(
-        o + b * o_sb + h * o_sh + (long long)r * o_ss + c);
-    const uint4 dv = *reinterpret_cast<const uint4*>(
-        dout + b * do_sb + h * do_sh + (long long)r * do_ss + c);
-    const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
-    const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&dv);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 a = __bfloat1622float2(o2[i]);
-      const float2 d = __bfloat1622float2(d2[i]);
-      acc += a.x * d.x + a.y * d.y;
-    }
-  }
-  acc += __shfl_xor_sync(0xffffffffu, acc, 1);
-  acc += __shfl_xor_sync(0xffffffffu, acc, 2);
-  acc += __shfl_xor_sync(0xffffffffu, acc, 4);
-  if (r < S && tid % 8 == 0) delta[(long long)bh * S + r] = acc;
-}
 
 template <bool DROPOUT>
 __global__ void __launch_bounds__(NTHREADS)
@@ -373,7 +337,7 @@ int git_flash_bwd(const void* q, const void* k, const void* v, const void* o,
                   void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 dgrid((S + DELTA_ROWS - 1) / DELTA_ROWS, B * H);
-  git_flash_bwd_delta_kernel<<<dgrid, NTHREADS, 0, st>>>(
+  rowsum_product_kernel<<<dgrid, DELTA_THREADS, 0, st>>>(
       static_cast<const __nv_bfloat16*>(o),
       static_cast<const __nv_bfloat16*>(dout), static_cast<float*>(delta), H,
       S, o_sb, o_sh, o_ss, do_sb, do_sh, do_ss);

@@ -83,14 +83,7 @@ git_flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
   // Q A-fragments for this warp's 16 rows, one per 16-wide slice of DH
   const int wr = warp * 16;
   uint32_t qa[DH / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < DH / 16; ++kk) {
-    const int c = kk * 16 + 2 * t;
-    qa[kk][0] = ld_u32(&sQ[(wr + g) * PITCH + c]);
-    qa[kk][1] = ld_u32(&sQ[(wr + g + 8) * PITCH + c]);
-    qa[kk][2] = ld_u32(&sQ[(wr + g) * PITCH + c + 8]);
-    qa[kk][3] = ld_u32(&sQ[(wr + g + 8) * PITCH + c + 8]);
-  }
+  load_a_frags(qa, sQ, wr, g, t);
 
   const int row[2] = {q0 + wr + g, q0 + wr + g + 8};
   float m_run[2] = {-INFINITY, -INFINITY};

@@ -233,23 +233,6 @@ def _kernel_fn(name: str):
     return fn
 
 
-def _raise_on_error(name: str, err: int) -> None:
-    if err != 0:
-        lib = _build.load(name)
-        lib.git_flash_error_string.restype = ctypes.c_char_p
-        lib.git_flash_error_string.argtypes = [ctypes.c_int]
-        raise RuntimeError(f"{name} launch failed: "
-                           + lib.git_flash_error_string(err).decode())
-
-
-def _kernel_ready(x: torch.Tensor) -> torch.Tensor:
-    """A (B, H, S, 64) view the kernels can read through its strides:
-    unit stride on Dh, 16-byte aligned rows.  Anything else is copied."""
-    aligned = (x.stride(-1) == 1 and x.data_ptr() % 16 == 0
-               and all(st % 8 == 0 for st in x.stride()[:-1]))
-    return x if aligned else x.contiguous()
-
-
 def _check(attention_mask, num_img, *xs):
     q = xs[0]
     if not (all(x.is_cuda for x in xs) and attention_mask.is_cuda):
@@ -275,7 +258,7 @@ def _launch(q, k, v, attention_mask, num_img, rate=0.0, seed=None):
     """K1 (with K4 inside when ``rate`` > 0) on CUDA tensors."""
     _check(attention_mask, num_img, q, k, v)
     b, h, s, dh = q.shape
-    q, k, v = _kernel_ready(q), _kernel_ready(k), _kernel_ready(v)
+    q, k, v = (_build.kernel_ready(x) for x in (q, k, v))
     text_mask = attention_mask.to(torch.int32).contiguous()
     seed_t = _seed_tensor(seed, q.device)
     thresh, inv_keep = _dropout_consts(rate)
@@ -291,7 +274,7 @@ def _launch(q, k, v, attention_mask, num_img, rate=0.0, seed=None):
             out.data_ptr(), lse.data_ptr(), b, h, s, num_img,
             attention_mask.shape[1], *strides, dh ** -0.5,
             seed_t.data_ptr(), thresh, inv_keep, stream)
-    _raise_on_error(KERNEL, err)
+    _build.raise_on_error(KERNEL, err)
     _build.count_launch(KERNEL)
     if rate > 0.0:
         _build.count_launch(_build.HASH_DROPOUT)
@@ -308,7 +291,7 @@ def _launch_bwd(q, k, v, o, lse, do, attention_mask, num_img, rate=0.0,
     if lse.shape != (b, h, s) or lse.dtype != torch.float32 \
             or not lse.is_contiguous():
         raise ValueError("git_flash_bwd takes a contiguous (B, H, S) f32 LSE")
-    q, k, v, o, do = (_kernel_ready(x) for x in (q, k, v, o, do))
+    q, k, v, o, do = (_build.kernel_ready(x) for x in (q, k, v, o, do))
     text_mask = attention_mask.to(torch.int32).contiguous()
     seed_t = _seed_tensor(seed, q.device)
     thresh, inv_keep = _dropout_consts(rate)
@@ -331,7 +314,7 @@ def _launch_bwd(q, k, v, o, lse, do, attention_mask, num_img, rate=0.0,
             dv.data_ptr(), delta.data_ptr(), b, h, s, num_img,
             attention_mask.shape[1], *strides, dh ** -0.5, thresh,
             inv_keep, stream)
-    _raise_on_error(KERNEL_BWD, err)
+    _build.raise_on_error(KERNEL_BWD, err)
     _build.count_launch(KERNEL_BWD)
     if rate > 0.0:
         _build.count_launch(_build.HASH_DROPOUT)

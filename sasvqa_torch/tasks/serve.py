@@ -7,10 +7,13 @@ requests into fixed-shape batches:
   returns a ``concurrent.futures.Future``;
 - one dispatcher thread drains up to ``batch_size`` requests (after the
   first arrives it lingers ``linger_ms`` for more);
-- the batch goes through ``GITCollator(add_ans=False)``, short batches
-  padded by repeating the last request, so every call has one shape;
-- the GIT model decodes greedily and answers with the generated text
-  (label = last word via ans2label).
+- the batch goes through the training/eval collator
+  (``GITCollator(add_ans=False)`` or ``ClassifierCollator``), short
+  batches padded by repeating the last request, so every call has one
+  shape;
+- GIT decodes greedily and answers with the generated text (label = last
+  word via ans2label); the BLIP classifier answers ``label2ans`` of the
+  argmax label.
 
 The JSONL CLI front of the JAX package decodes videos through stage A,
 which is not ported yet; :func:`serve_requests` is its request loop.
@@ -30,20 +33,21 @@ import torch
 
 from sasvqa_torch.core.device import DeviceLike, resolve_device
 from sasvqa_torch.core.logging import LOGGER
-from sasvqa_torch.data.dataset import GITCollator
+from sasvqa_torch.data.dataset import ClassifierCollator, GITCollator
 from sasvqa_torch.tasks.run_video_qa import decode_answers
-from sasvqa_torch.train.steps import make_git_eval_step
+from sasvqa_torch.train.steps import (make_classifier_eval_step,
+                                      make_git_eval_step)
 
 
 class QAEngine:
-    """Micro-batching video-QA inference engine over a GIT model.
+    """Micro-batching video-QA inference engine.
 
     model: a built model (presets.build_model) on ``device``.  family:
-    'git' (the classifier families are not ported yet).  ans2label:
-    optional answer vocabulary for the last-word label.  nframe /
-    samp_policy: the collator's frame re-sampling.  The dispatcher thread
-    runs every batch under ``torch.inference_mode()`` on that thread's
-    current CUDA stream.
+    'git' or 'blip' (CLIP is not ported yet).  ans2label: the answer
+    vocabulary, required for the classifier, optional for GIT (the
+    last-word label).  nframe / samp_policy: the collator's frame
+    re-sampling.  The dispatcher thread runs every batch under
+    ``torch.inference_mode()`` on that thread's current CUDA stream.
     """
 
     def __init__(self, model, family: str, tokenizer,
@@ -52,21 +56,33 @@ class QAEngine:
                  batch_size: int = 8, linger_ms: float = 5.0,
                  max_txt_len: int = 20, max_text_len: int = 50,
                  pixel_dtype: str = "f32", device: DeviceLike = "cuda"):
-        if family != "git":
+        if family not in ("git", "blip"):
             raise NotImplementedError(
                 f"serving the {family!r} family is not ported yet")
+        if family != "git" and not ans2label:
+            raise ValueError("classifier serving needs an ans2label "
+                             "answer vocabulary")
         self.device = resolve_device(device)
         self.family = family
         self.tokenizer = tokenizer
         self.ans2label = ans2label or {}
+        self.label2ans = {v: k for k, v in self.ans2label.items()}
         self.batch_size = int(batch_size)
         self.linger_s = float(linger_ms) / 1e3
-        self._collator = GITCollator(
-            tokenizer, max_txt_len=max_txt_len, task_type="msvd_qa",
-            nframe=nframe, samp_policy=samp_policy, add_ans=False,
-            pixel_dtype=pixel_dtype)
-        self._eval_step = make_git_eval_step(
-            model, max_text_len=max_text_len, device=self.device)
+        if family == "git":
+            self._collator = GITCollator(
+                tokenizer, max_txt_len=max_txt_len, task_type="msvd_qa",
+                nframe=nframe, samp_policy=samp_policy, add_ans=False,
+                pixel_dtype=pixel_dtype)
+            self._eval_step = make_git_eval_step(
+                model, max_text_len=max_text_len, device=self.device)
+        else:
+            self._collator = ClassifierCollator(
+                tokenizer, max_txt_len=max_txt_len, task_type="msvd_qa",
+                nframe=nframe, samp_policy=samp_policy,
+                pixel_dtype=pixel_dtype)
+            self._eval_step = make_classifier_eval_step(model,
+                                                        device=self.device)
 
         self.stats = {"requests": 0, "batches": 0, "batch_rows": 0}
         self._queue: "queue.Queue" = queue.Queue()
@@ -193,10 +209,15 @@ class QAEngine:
         # fixed batch shape: repeat the last request into the tail
         items += [items[-1]] * (self.batch_size - n_real)
         batch = self._collator(items, rng=np.random.default_rng(0))
-        generated = self._eval_step(batch).cpu().numpy()
-        preds, strs = decode_answers(self.tokenizer, generated[:n_real],
-                                     self.ans2label)
-        out = [{"answer": s, "label": p} for s, p in zip(strs, preds)]
+        if self.family == "git":
+            generated = self._eval_step(batch).cpu().numpy()
+            preds, strs = decode_answers(self.tokenizer, generated[:n_real],
+                                         self.ans2label)
+            out = [{"answer": s, "label": p} for s, p in zip(strs, preds)]
+        else:
+            preds, _ = self._eval_step(batch)
+            out = [{"answer": self.label2ans.get(int(p), ""),
+                    "label": int(p)} for p in preds[:n_real].tolist()]
         self.stats["requests"] += n_real
         self.stats["batches"] += 1
         self.stats["batch_rows"] += self.batch_size

@@ -1,16 +1,22 @@
-"""Where a GIT-base serving batch spends its time on the GPU.
+"""Where a serving batch spends its time on the GPU.
 
-    python3 -m sasvqa_torch.tools.profile_serve [--trace DIR]
+    python3 -m sasvqa_torch.tools.profile_serve [--family git|blip]
+                                                [--trace DIR]
 
-Runs ``torch.profiler`` over one ``prompt_fill`` and over 8 decode
-steps of GIT-base at full width (seeded random weights, bf16
-activations, batch 8, 8 frames of 224x224, 20 prompt tokens, 50-token
-budget: the serving shape of chip_smoke.py).  Prints one JSON line per
-part: host wall ms (ending in a synchronize), the device time of every
-CUDA kernel summed, the device busy share (union of kernel intervals over
-the wall time), the kernel launch count, and the kernels that took the
-most device time.  ``--trace DIR`` also writes Chrome traces there.
-Needs a GPU.
+Runs ``torch.profiler`` at full width (seeded random weights, bf16
+activations) at the serving shapes of chip_smoke.py:
+
+- ``git``: one ``prompt_fill`` and 8 decode steps of GIT-base, batch 8,
+  8 frames of 224x224, 20 prompt tokens, 50-token budget;
+- ``blip``: the BLIP-base classifier's vision tower alone and its whole
+  eval forward, batch 16, 4 frames of 384x384 (577 tokens a frame), 20
+  text tokens, 1000 labels.
+
+Prints one JSON line per part: host wall ms (ending in a synchronize),
+the device time of every CUDA kernel summed, the device busy share (union
+of kernel intervals over the wall time), the kernel launch count, and the
+kernels that took the most device time.  ``--trace DIR`` also writes
+Chrome traces there.  Needs a GPU.
 """
 
 from __future__ import annotations
@@ -75,10 +81,13 @@ def profile_part(name, fn, trace_dir=None, top=8, keep_all=False):
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--family", choices=("git", "blip"), default="git")
     p.add_argument("--trace", default=None)
     args = p.parse_args(argv)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.family == "blip":
+        return _profile_blip(args.trace)
     _, model = build_model(
         {"model": {"pretrained_model": "microsoft/git-base-msrvtt-qa"}},
         dtype=torch.bfloat16, device="cuda",
@@ -107,6 +116,34 @@ def main(argv=None) -> int:
             row = profile_part(name, fn, args.trace)
             if name == "decode_steps":
                 row["steps"] = STEPS
+            print(json.dumps(row), flush=True)
+    return 0
+
+
+def _profile_blip(trace_dir) -> int:
+    _, model = build_model(
+        {"model": {"pretrained_model": "Salesforce/blip-base"},
+         "num_labels": 1000, "classifier": "mlp"},
+        dtype=torch.bfloat16, device="cuda",
+        generator=torch.Generator().manual_seed(0))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    b, frames, img, l = 16, 4, 384, 20
+    ids = torch.randint(1000, 2000, (b, l), generator=gen, device="cuda")
+    mask = torch.ones_like(ids)
+    mask[:, 12:] = 0
+    px = torch.randn((b, frames, img, img, 3), generator=gen, device="cuda")
+    with torch.inference_mode():
+        def vision():
+            model.vis_model(px.to(torch.bfloat16).flatten(0, 1))
+
+        def forward():
+            model(ids, mask, px)["logits"].argmax(-1)
+
+        forward()                               # warm-up
+        for name, fn in (("vision_tower", vision),
+                         ("classifier_forward", forward)):
+            row = profile_part(name, fn, trace_dir)
+            row.update(batch=b, frames=frames, img=img)
             print(json.dumps(row), flush=True)
     return 0
 

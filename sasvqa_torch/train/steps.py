@@ -1,14 +1,20 @@
-"""Optimizer, train steps and eval step (counterpart of
-sasvqa_tpu/train/steps.py), for the GIT family.
+"""Optimizer, train steps and eval steps (counterpart of
+sasvqa_tpu/train/steps.py), for the GIT family and the BLIP classifier.
 
 - :func:`make_optimizer` builds the JAX package's optax chain by hand:
   clip by global norm -> AdamW (masked decoupled weight decay, LR
-  schedule) -> masked lr_mul scale, with optax's numerics (clip only when
-  the norm reaches the limit, as ``(g / norm) * max``; the schedule read at
-  the update count before it is incremented; bias correction in f32);
+  schedule) or Adam (``optim: "adam"``, no decay) -> masked lr_mul scale,
+  with optax's numerics (clip only when the norm reaches the limit, as
+  ``(g / norm) * max``; the schedule read at the update count before it
+  is incremented; bias correction in f32);
 - :func:`make_scan_train_step` accumulates K micro-batches' gradients
   (Welford mean, or the plain sum) and runs one optimizer update per K
-  micros; :func:`make_git_train_step` is the one-micro form.
+  micros, for ``family="git"`` (LM loss) or ``"classifier"`` (answer
+  classification, with train-accuracy counts);
+  :func:`make_git_train_step` and :func:`make_classifier_train_step` are
+  the one-micro forms;
+- the eval steps: greedy decode for GIT, argmax labels or raw logits for
+  the classifier.
 
 The port updates parameters in place (the JAX package returns a new
 state): a step returns the same :class:`TrainState` with ``step``
@@ -27,7 +33,7 @@ import torch
 from torch import nn
 
 from sasvqa_torch.core.device import DeviceLike, resolve_device
-from sasvqa_torch.models.git import GITForCausalLM, greedy_generate
+from sasvqa_torch.models.git import greedy_generate
 from sasvqa_torch.models.layers import Dense, Embed, LayerNorm
 from sasvqa_torch.train.schedules import Schedule, get_lr_schedule, lr_value
 
@@ -87,9 +93,9 @@ class AdamW:
     ``update(grads)`` clips the gradients by their global norm
     (``max_norm`` > 0), forms the Adam update from f32 moments with
     f32 bias correction, adds ``weight_decay * param`` where ``decay``
-    holds, scales by ``-schedule(count)`` and by ``lr_mul``, adds the
-    result to the parameters and returns the global norm before
-    clipping.  ``count`` counts updates."""
+    holds (nowhere for optax.adam), scales by ``-schedule(count)`` and by
+    ``lr_mul``, adds the result to the parameters and returns the global
+    norm before clipping.  ``count`` counts updates."""
 
     def __init__(self, params: Sequence[nn.Parameter], schedule: Schedule,
                  b1: float, b2: float, weight_decay: float,
@@ -144,15 +150,17 @@ def _milestones(cfg: Mapping[str, Any], total_steps: int) -> List[int]:
 
 def make_optimizer(cfg: Mapping[str, Any], total_steps: int,
                    model: nn.Module) -> AdamW:
-    """AdamW over ``model``'s parameters from a task config: betas,
-    ``weight_decay`` masked off biases and LayerNorm scales, the LR
-    schedule (``decay``, ``learning_rate``, ``warmup_ratio``,
-    ``step_decay_epochs``, ``gamma``), ``grad_norm`` clipping and the
-    ``transformer_lr_mul``/``transformer_lr_mul_prefix`` group."""
+    """AdamW (``optim: "adamw"``, the default) or Adam (``"adam"``: no
+    weight decay, as optax.adam) over ``model``'s parameters from a task
+    config: betas, ``weight_decay`` masked off biases and LayerNorm
+    scales, the LR schedule (``decay``, ``learning_rate``,
+    ``warmup_ratio``, ``step_decay_epochs``, ``gamma``), ``grad_norm``
+    clipping and the ``transformer_lr_mul``/``transformer_lr_mul_prefix``
+    group."""
     name = str(cfg.get("optim", "adamw")).lower()
-    if name != "adamw":
+    if name not in ("adamw", "adam"):
         raise NotImplementedError(f"optimizer {name!r} is not ported "
-                                  f"(adamw only)")
+                                  f"(adamw and adam only)")
     if str(cfg.get("adamw_moment_dtype", "f32")) != "f32":
         raise NotImplementedError("low-precision Adam moments are not "
                                   "ported (f32 only)")
@@ -166,13 +174,14 @@ def make_optimizer(cfg: Mapping[str, Any], total_steps: int,
         milestones=_milestones(cfg, total_steps), gamma=cfg.get("gamma", 0.5))
     betas = cfg.get("betas", [0.9, 0.98])
     named = list(model.named_parameters())
-    decay = decay_mask(model)
+    decay = decay_mask(model) if name == "adamw" else {}
     lr_mul = cfg.get("transformer_lr_mul", 1.0)
     prefix = cfg.get("transformer_lr_mul_prefix", "")
     mul = lr_mul_mask(model, prefix) if prefix and lr_mul != 1.0 else {}
     return AdamW([p for _, p in named], sched, float(betas[0]),
-                 float(betas[1]), cfg.get("weight_decay", 1e-3),
-                 [decay[n] for n, _ in named],
+                 float(betas[1]),
+                 cfg.get("weight_decay", 1e-3) if name == "adamw" else 0.0,
+                 [decay.get(n, False) for n, _ in named],
                  [lr_mul if mul.get(n) else 1.0 for n, _ in named],
                  max_norm=cfg.get("grad_norm", -1) or -1.0)
 
@@ -192,11 +201,11 @@ def lr_at(cfg: Mapping[str, Any], total_steps: int, global_step: int) -> float:
 class TrainState:
     """``step`` counts micro steps; the model holds the parameters."""
     step: int
-    model: GITForCausalLM
+    model: nn.Module
     optimizer: AdamW
 
 
-def create_train_state(model: GITForCausalLM, cfg: Mapping[str, Any],
+def create_train_state(model: nn.Module, cfg: Mapping[str, Any],
                        total_steps: int, device: DeviceLike = "cuda"
                        ) -> TrainState:
     """Move ``model`` to ``device`` in training mode and build its
@@ -224,30 +233,55 @@ def _tensor(x, device: torch.device, dtype=None) -> torch.Tensor:
     return t.to(device=device, dtype=dtype)
 
 
-def _git_loss(model: GITForCausalLM, batch: Mapping[str, Any],
-              generator: torch.Generator, dev: torch.device) -> torch.Tensor:
+def _forward(model: nn.Module, batch: Mapping[str, Any],
+             generator: torch.Generator, dev: torch.device
+             ) -> Dict[str, torch.Tensor]:
+    """The training forward (dropouts on) of one micro-batch."""
     return model(_tensor(batch["text_input_ids"], dev, torch.long),
                  _tensor(batch["text_attention_mask"], dev),
                  _tensor(batch["visual_inputs"], dev),
                  labels=_tensor(batch["labels"], dev, torch.long),
-                 deterministic=False, generator=generator)["loss"]
+                 deterministic=False, generator=generator)
+
+
+def _git_loss(model: nn.Module, batch: Mapping[str, Any],
+              generator: torch.Generator, dev: torch.device
+              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    return _forward(model, batch, generator, dev)["loss"], {}
+
+
+def _classifier_loss(model: nn.Module, batch: Mapping[str, Any],
+                     generator: torch.Generator, dev: torch.device
+                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Loss and the train-accuracy counts over labels other than -100."""
+    out = _forward(model, batch, generator, dev)
+    labels = _tensor(batch["labels"], dev, torch.long)
+    valid = labels != -100
+    correct = (out["logits"].argmax(dim=-1) == labels) & valid
+    return out["loss"], {"acc_correct": correct.sum(),
+                         "acc_total": valid.sum()}
+
+
+_LOSSES = {"git": _git_loss, "classifier": _classifier_loss}
 
 
 def _accumulate_and_update(state: TrainState,
                            micros: Sequence[Mapping[str, Any]], seed: int,
-                           grad_mean: bool, dev: torch.device
+                           grad_mean: bool, dev: torch.device,
+                           family: str = "git"
                            ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
     params = state.optimizer.params
     acc: List[torch.Tensor] = []
-    losses = []
+    losses, counts = [], []
     for i, mb in enumerate(micros):
         gen = torch.Generator(device=dev).manual_seed(
             fold_in(seed, state.step + i))
         for p in params:
             p.grad = None
-        loss = _git_loss(state.model, mb, gen, dev)
+        loss, metrics = _LOSSES[family](state.model, mb, gen, dev)
         loss.backward()
         losses.append(loss.detach())
+        counts.append(metrics)
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in params]
         if i == 0:          # 0 + (g - 0) / 1 and 0 + g are g exactly
@@ -262,7 +296,10 @@ def _accumulate_and_update(state: TrainState,
         p.grad = a
     gnorm = state.optimizer.update(acc)
     state.step += len(micros)
-    return state, {"loss": torch.stack(losses).mean(), "grad_norm": gnorm}
+    metrics = {"loss": torch.stack(losses).mean(), "grad_norm": gnorm}
+    for key in counts[0]:
+        metrics[key] = torch.stack([c[key] for c in counts]).sum()
+    return state, metrics
 
 
 TrainStep = Callable[[TrainState, Dict[str, Any], int],
@@ -282,36 +319,97 @@ def make_git_train_step(device: DeviceLike = "cuda") -> TrainStep:
     return step
 
 
+def make_classifier_train_step(device: DeviceLike = "cuda") -> TrainStep:
+    """Train step for the classifier family (CLIP/BLIP answer
+    classification): ``step(state, batch, seed) -> (state, {"loss",
+    "grad_norm", "acc_correct", "acc_total"})``, one optimizer update per
+    batch; dropout draws from a generator seeded from (seed,
+    state.step)."""
+    dev = resolve_device(device)
+
+    def step(state: TrainState, batch: Dict[str, Any], seed: int):
+        return _accumulate_and_update(state, [batch], seed, True, dev,
+                                      "classifier")
+
+    return step
+
+
 def make_scan_train_step(k_micro: int, family: str = "git",
                          grad_mean: bool = True,
                          device: DeviceLike = "cuda") -> TrainStep:
     """One call = one optimizer update over ``k_micro`` stacked
     micro-batches (every array leaf of the batch is (K, B, ...), as
-    ``data.pipeline.stack_microbatches`` makes it).
+    ``data.pipeline.stack_microbatches`` makes it).  ``family``: ``"git"``
+    (LM loss) or ``"classifier"`` (answer classification).
 
     Micro i draws its dropout from a generator seeded from (seed,
     state.step + i); ``state.step`` advances by K.  Gradients accumulate
     as the Welford running mean ``acc + (g - acc)/(i+1)``, or as the sum
     with ``grad_mean=False`` (the reference's per-micro backward without
     /K).  Metrics: ``loss`` is the mean over the K micros, ``grad_norm``
-    the norm of the accumulated gradient before clipping."""
+    the norm of the accumulated gradient before clipping; the classifier
+    adds ``acc_correct``/``acc_total`` summed over the K micros."""
     if k_micro < 1:
         raise ValueError(f"k_micro must be >= 1, got {k_micro}")
-    if family != "git":
+    if family not in _LOSSES:
         raise NotImplementedError(f"the {family} family is not ported yet "
-                                  f"(GIT only)")
+                                  f"(git and classifier only)")
     dev = resolve_device(device)
 
     def step(state: TrainState, batch: Dict[str, Any], seed: int):
         micros = [{key: batch[key][i] for key in
                    ("text_input_ids", "text_attention_mask",
                     "visual_inputs", "labels")} for i in range(k_micro)]
-        return _accumulate_and_update(state, micros, seed, grad_mean, dev)
+        return _accumulate_and_update(state, micros, seed, grad_mean, dev,
+                                      family)
 
     return step
 
 
-def make_git_eval_step(model: GITForCausalLM, max_text_len: int = 50,
+def _eval_forward(model: nn.Module, batch: Mapping[str, Any],
+                  dev: torch.device) -> Dict[str, torch.Tensor]:
+    labels = batch.get("labels")
+    return model(_tensor(batch["text_input_ids"], dev, torch.long),
+                 _tensor(batch["text_attention_mask"], dev),
+                 _tensor(batch["visual_inputs"], dev),
+                 labels=None if labels is None
+                 else _tensor(labels, dev, torch.long))
+
+
+def make_classifier_eval_step(model: nn.Module, device: DeviceLike = "cuda"
+                              ) -> Callable[[Dict[str, Any]],
+                                            Tuple[torch.Tensor,
+                                                  torch.Tensor]]:
+    """Classifier eval: batch -> (argmax label ids (B,), loss, or 0 when
+    the batch has no labels), computed under ``torch.inference_mode()``
+    on ``device``."""
+    dev = resolve_device(device)
+
+    @torch.inference_mode()
+    def step(batch: Dict[str, Any]):
+        out = _eval_forward(model, batch, dev)
+        return (out["logits"].argmax(dim=-1),
+                out.get("loss", torch.zeros((), device=dev)))
+
+    return step
+
+
+def make_classifier_logits_step(model: nn.Module,
+                                device: DeviceLike = "cuda"
+                                ) -> Callable[[Dict[str, Any]],
+                                              torch.Tensor]:
+    """Classifier eval returning the raw f32 logits (B, num_labels), for
+    multi-clip ensembles aggregated outside."""
+    dev = resolve_device(device)
+
+    @torch.inference_mode()
+    def step(batch: Dict[str, Any]) -> torch.Tensor:
+        return _eval_forward(model, dict(batch, labels=None), dev)["logits"]
+
+    return step
+
+
+def make_git_eval_step(model: nn.Module, max_text_len: int = 50,
                        max_new_tokens: Optional[int] = None,
                        device: DeviceLike = "cuda"
                        ) -> Callable[[Dict[str, Any]], torch.Tensor]:

@@ -12,6 +12,10 @@ import torch
 
 from sasvqa_torch.models.layers import merge_heads, split_heads
 from sasvqa_torch.ops import _build
+from sasvqa_torch.ops.attention import dot_product_attention
+from sasvqa_torch.ops.flash_attention import (flash_attention,
+                                              flash_attention_reference,
+                                              flash_backward_reference)
 from sasvqa_torch.ops.git_flash import (git_flash_attention,
                                         git_flash_attention_reference,
                                         git_flash_backward_reference)
@@ -199,3 +203,139 @@ def test_scan_train_step_on_the_card(cuda):
     assert state.step == 4 and all(np.isfinite(losses))
     assert _build.launch_counts["git_flash_bwd"] == cfg.num_layers * 4
     assert _build.launch_counts["hash_dropout"] == 2 * cfg.num_layers * 4
+
+
+# ---- K5 / K6: the generic flash kernels ------------------------------------
+
+FLASH_SHAPES = [  # (B, H, Lq, Lk, bias)
+    (2, 3, 577, 577, None),      # one BLIP-base frame, ragged edge tiles
+    (1, 2, 130, 200, "row"),     # rectangular, key-padding row bias
+    (2, 2, 200, 130, "full"),    # rectangular, per-example 2-D bias
+    (1, 2, 577, 577, "causal"),  # (1, 1, L, L) causal bias
+    (2, 3, 65, 64, "heads"),     # (1, H, Lq, Lk) bias
+]
+
+
+def _flash_bias(kind, b, h, lq, lk, cuda, seed):
+    from sasvqa_torch.ops.attention import causal_bias, padding_bias
+    rng = np.random.default_rng(seed)
+    if kind is None:
+        return None
+    if kind == "row":
+        keep = (np.arange(lk)[None, :]
+                < rng.integers(lk // 2, lk + 1, size=b)[:, None])
+        return padding_bias(torch.from_numpy(keep.astype(np.int32))).to(cuda)
+    if kind == "causal":
+        return causal_bias(lq, device=cuda)
+    shape = (b, 1, lq, lk) if kind == "full" else (1, h, lq, lk)
+    return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(cuda)
+
+
+@pytest.mark.parametrize("b,h,lq,lk,kind", FLASH_SHAPES)
+def test_flash_kernels_match_plain(cuda, b, h, lq, lk, kind):
+    """K5's O and LSE and K6's dQ, dK, dV through autograd, on split-head
+    views of fused projections, within the chip_smoke.py tolerances of
+    the plain versions."""
+    d = 64
+    gen = torch.Generator(device=cuda).manual_seed(lq + lk)
+    xq = torch.randn((b, lq, h * d), generator=gen, device=cuda
+                     ).to(torch.bfloat16).requires_grad_(True)
+    xkv = torch.randn((b, lk, 2 * h * d), generator=gen, device=cuda
+                      ).to(torch.bfloat16).requires_grad_(True)
+    q = split_heads(xq, h)
+    k, v = (split_heads(x, h) for x in xkv.chunk(2, dim=-1))
+    bias = _flash_bias(kind, b, h, lq, lk, cuda, lq)
+    dctx = torch.randn((b, lq, h * d), generator=gen, device=cuda
+                       ).to(torch.bfloat16)
+    _build.reset_launch_counts()
+    out = flash_attention(q, k, v, bias)
+    merge_heads(out).backward(dctx)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["flash_fwd"] == 1
+    assert _build.launch_counts["flash_bwd_dq"] == 1
+    assert _build.launch_counts["flash_bwd_dkv"] == 1
+    qd, kd, vd = q.detach(), k.detach(), v.detach()
+    ref_o, ref_lse = flash_attention_reference(qd, kd, vd, bias)
+    assert (out.float() - ref_o.float()).abs().max().item() <= TOL_O
+    from sasvqa_torch.ops.flash_attention import flash_forward
+    _, lse = flash_forward(qd, kd, vd, bias)
+    assert (lse - ref_lse).abs().max().item() <= TOL_LSE
+    refs = flash_backward_reference(qd, kd, vd, out.detach(), lse,
+                                    split_heads(dctx, h), bias)
+    grads = [split_heads(xq.grad, h)] + [
+        split_heads(g, h) for g in xkv.grad.chunk(2, dim=-1)]
+    for name, got, ref in zip("qkv", grads, refs):
+        assert torch.isfinite(got.float()).all(), name
+        scale = max(ref.float().abs().max().item(), 1e-6)
+        err = (got.float() - ref.float()).abs().max().item()
+        assert err <= TOL_GRAD_REL * scale, (name, err, scale)
+
+
+def test_flash_route_raises_where_the_kernels_cannot_go(cuda):
+    """At >= 512 tokens CUDA tensors take the kernels or raise: Dh != 64
+    and f32 inputs raise; nothing falls back to the plain version."""
+    x32 = torch.zeros((1, 2, 600, 32), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="Dh=64"):
+        dot_product_attention(x32, x32, x32)
+    x = torch.zeros((1, 2, 600, 64), device=cuda)
+    with pytest.raises(ValueError, match="bf16"):
+        dot_product_attention(x, x, x)
+    _build.reset_launch_counts()
+    xb = x.to(torch.bfloat16)
+    dot_product_attention(xb, xb, xb, bias=torch.zeros((600,), device=cuda))
+    assert _build.launch_counts["flash_fwd"] == 1
+    dot_product_attention(xb[:, :, :500], xb, xb)       # Lq < 512: plain
+    assert _build.launch_counts["flash_fwd"] == 1
+
+
+def test_blip_vision_tower_backward_reaches_every_layer(cuda):
+    """BLIP's vision tower at 384x384 / patch 16 (577 tokens, Dh = 64) on
+    the kernel route: K5 and K6 launch once a layer, every layer's
+    qkv.weight gets a nonzero gradient through them, and the gradients
+    agree with the plain route's (flash=False) within 5e-2 of their norm,
+    or, where the plain bf16 route itself is further than that from the
+    plain route in f32, are no further from f32 than twice the plain
+    route (chip_smoke.py's BLIP grad-check rule)."""
+    from sasvqa_torch.models.blip import BLIPVisionConfig, BLIPVisionEncoder
+    # BLIP-base depth (12 layers) at a narrow width, heads of Dh = 64
+    cfg = BLIPVisionConfig(hidden_size=128, intermediate_size=256,
+                           num_layers=12, num_heads=2)
+    px = torch.from_numpy(np.random.default_rng(0).normal(
+        size=(2, 384, 384, 3)).astype(np.float32)).to(cuda)
+    grads = {}
+    for route, dtype in ((None, torch.bfloat16), (False, torch.bfloat16),
+                         (False, torch.float32)):
+        model = BLIPVisionEncoder(cfg, dtype=dtype,
+                                  generator=torch.Generator().manual_seed(0)
+                                  ).to(cuda)
+        model.flash = route
+        _build.reset_launch_counts()
+        hidden, pooled = model(px)
+        (hidden.float().square().mean() + pooled.float().sum()).backward()
+        torch.cuda.synchronize()
+        expected = cfg.num_layers if route is None else 0
+        assert _build.launch_counts["flash_fwd"] == expected
+        assert _build.launch_counts["flash_bwd_dq"] == expected
+        assert _build.launch_counts["flash_bwd_dkv"] == expected
+        for lyr in model.layers:
+            g = lyr.self_attn.qkv.weight.grad
+            assert g is not None and g.abs().sum().item() > 0
+        grads[route, dtype] = {}
+        for n, p in model.named_parameters():
+            g = p.grad.float()
+            if n.endswith("qkv.bias"):   # the K third's true gradient is 0
+                d = g.shape[0] // 3
+                g = torch.cat([g[:d], g[2 * d:]])
+            grads[route, dtype][n] = g
+
+    def rel(a, b):
+        return ((a - b).norm() / b.norm().clamp(min=1e-12)).item()
+
+    kern = grads[None, torch.bfloat16]
+    plain = grads[False, torch.bfloat16]
+    oracle = grads[False, torch.float32]
+    for name, g in kern.items():
+        kp, pf = rel(g, plain[name]), rel(plain[name], oracle[name])
+        assert kp <= 5e-2 or (pf > 5e-2 and rel(g, oracle[name]) <= 2 * pf), \
+            (name, kp, pf, rel(g, oracle[name]))
+

@@ -134,9 +134,12 @@ def test_dense_attention_matches_xla_path():
     out = tatt.dot_product_attention(to_torch(q), to_torch(k), to_torch(v),
                                      bias=to_torch(bias))
     np.testing.assert_allclose(out.numpy(), ref, atol=1e-6, rtol=1e-5)
-    with pytest.raises(NotImplementedError, match="K5"):
-        tatt.dot_product_attention(to_torch(q), to_torch(k), to_torch(v),
-                                   use_flash=True)
+    # use_flash=True on CPU tensors runs the plain version of the flash
+    # kernels (K5), which sums in another order
+    flash = tatt.dot_product_attention(to_torch(q), to_torch(k),
+                                       to_torch(v), bias=to_torch(bias),
+                                       use_flash=True)
+    np.testing.assert_allclose(flash.numpy(), ref, atol=2e-5, rtol=1e-4)
 
 
 # ---- K4 hash dropout and the training path (forward and backward) ---------
