@@ -17,7 +17,13 @@ its kernels:
   (batch 16, 4 frames of 384x384, 577 tokens a frame), a check of the
   BLIP kernel route's gradients against the plain route's, and BLIP-base
   training with ``make_scan_train_step(family="classifier")`` (4 micros
-  of 8 questions, adam).
+  of 8 questions, adam);
+- GIT with the ViT-L/14 tower at 16 frames (S = 4144, remat, dropout
+  0.1/0.1): K3 (the split backward) against its plain version and K2 over
+  S = 604..4144 at rates 0 and 0.1, a gradient check of the K3 route
+  against the K2 route and of remat on against off, and the task loop
+  itself, ``start_training`` from a config file (4 updates, validation,
+  snapshots, frames from an in-memory store).
 
 Each phase prints one JSON line; the line before the last lists the
 kernels, the last is ``{"ok": true, "device": {...}}``.  Exits non-zero,
@@ -28,8 +34,10 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -49,12 +57,14 @@ from sasvqa_torch.ops.flash_attention import (_launch_dkv, _launch_dq,
                                               flash_attention_reference,
                                               flash_backward_reference,
                                               flash_forward)
+from sasvqa_torch.ops import git_flash as gf
 from sasvqa_torch.ops.git_flash import (git_flash_attention,
                                         git_flash_attention_reference,
-                                        git_flash_backward,
                                         git_flash_backward_reference,
                                         git_mask_ok, hash_dropout_factor)
+from sasvqa_torch.tasks import run_video_qa
 from sasvqa_torch.tasks.serve import QAEngine
+from sasvqa_torch.train import steps as train_steps
 from sasvqa_torch.train.steps import create_train_state, make_scan_train_step
 
 # H100 SXM dense peaks (NVIDIA data sheet) for the roofline bound; the
@@ -177,6 +187,13 @@ def git_flash_bound(num_img, text_mask, h, dh):
     pairs = attended_pairs(num_img, text_mask, h)
     nbytes = 4 * b * h * s * dh * 2 + b * h * s * 4 + b * l * 4
     return (*roofline(4 * dh * pairs, nbytes), pairs)
+
+
+def bwd_kernels(s_len, rate):
+    """The backward kernels the route launches at this length and rate:
+    K2, or K3's two."""
+    return (("git_flash_bwd",) if gf._fused_eligible(s_len, rate)
+            else ("git_flash_bwd_dq", "git_flash_bwd_dkv"))
 
 
 def git_flash_bwd_bound(num_img, text_mask, h, dh):
@@ -334,7 +351,7 @@ def phase_train_kernels(shapes, rate):
         for r in (0.0, rate):
             o_r, lse_r = git_flash_attention(q, k, v, mask, num_img, r, seed)
             args = (q, k, v, o_r, lse_r, do, mask, num_img, r, seed)
-            got = git_flash_backward(*args)
+            got = gf._launch_bwd(*args)
             ref = git_flash_backward_reference(*args)
             torch.cuda.synchronize()
             errs = {n: _rel_err(g, rf) for n, g, rf in zip("qkv", got, ref)}
@@ -344,7 +361,7 @@ def phase_train_kernels(shapes, rate):
                    "max_abs_err": {f"d{n}": e for n, (e, _) in errs.items()},
                    "max_abs_ref": {f"d{n}": m for n, (_, m) in errs.items()},
                    "tol_rel": TOL_GRAD_REL,
-                   "kernel_ms": cuda_ms(lambda: git_flash_backward(*args),
+                   "kernel_ms": cuda_ms(lambda: gf._launch_bwd(*args),
                                         reps=10),
                    "plain_ms": cuda_ms(
                        lambda: git_flash_backward_reference(*args), reps=2,
@@ -555,8 +572,10 @@ def phase_grad_check(seed):
     emit(row)
     n_layers = len(kern["qkv"])
     check(kern["launches"]["git_flash_fwd"] == n_layers
-          and kern["launches"]["git_flash_bwd"] == n_layers,
-          f"kernel route did not launch K1/K2 once a layer: {row}")
+          and all(kern["launches"][k] == n_layers
+                  for k in bwd_kernels(t * 197 + l, 0.0)),
+          f"kernel route did not launch K1 and the routed backward once a "
+          f"layer: {row}")
     check(all(x > 0 for x in kern["qkv"]),
           "a text layer's qkv.weight got no gradient on the kernel route")
     check(loss_rel <= TOL_LOSS_REL and rel[worst] <= TOL_PARAM_GRAD_REL,
@@ -637,9 +656,11 @@ def phase_train(seed):
     check(seq_len == 1608, f"train sequence {seq_len} != 1608")
     check(all(np.isfinite(losses)) and losses[-1] < losses[0],
           f"loss is not finite and falling: {losses}")
-    check(launches["git_flash_fwd"] == n and launches["git_flash_bwd"] == n
-          and launches["hash_dropout"] == 2 * n,
-          f"train launches {launches}, expected {n} of K1 and K2")
+    bwd = bwd_kernels(seq_len, cfg.attention_dropout)
+    check(launches["git_flash_fwd"] == n
+          and all(launches[k] == n for k in bwd)
+          and launches["hash_dropout"] == (1 + len(bwd)) * n,
+          f"train launches {launches}, expected {n} of K1 and of {bwd}")
     check(all(x > 0 for x in qkv),
           "a text layer's qkv.weight got no gradient")
     del state, model, step
@@ -1151,9 +1172,426 @@ def phase_slice(n_requests, seed):
     return row, launches
 
 
-PATHS = ("git_serve", "git_train", "blip_serve", "blip_train")
-KERNELS = ("git_flash_fwd", "git_flash_bwd", _build.HASH_DROPOUT,
-           "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+# ---- slice 4: K3, the ViT-L/14 16-frame GIT and the task loop --------------
+
+# K3 vs K2 over S: (B, H, num_img, L, rows held against the plain version).
+# The plain backward materialises several (B, H, S, S) f32 tensors, so the
+# longest lengths compare 2 rows of the batch (their hash coordinates are
+# the full batch's: b*H + h)
+SPLIT_SHAPES = {"ragged_3f": (2, 12, 3 * 197, 13, 2),
+                "flagship": (16, 12, 8 * 197, 32, 16),
+                "git_base_16f": (8, 12, 16 * 197, 32, 2),
+                "vitl16": (8, 12, 16 * 257, 32, 2)}
+# GIT with ViT-L/14 (git-large presets: 24 x 1024 vision, 6 x 768 text,
+# vocab 30522), 16 frames of 224x224, text length 32: S = 16*257 + 32
+VITL16_CFG = {"model": {"pretrained_model": "microsoft/git-large-msrvtt-qa",
+                        "hidden_dropout_prob": 0.1,
+                        "attention_probs_dropout_prob": 0.1},
+              "remat": True}
+VITL16 = dict(frames=16, img=224, text_len=32, grad_check_rows=2, seed=0)
+# the task loop: configs/msvd_qa_base.json (nframe 1 uniform over 16
+# stored frames, one question a group) at the vitl16 shape: 32 videos of 2
+# questions, train_batch_size 8 and 2 accumulated micros (4 updates in
+# one epoch), 16 val and 16 test questions at val_batch_size 8
+TASK = dict(videos=32, questions=2, stored_frames=16, img=224, val=16,
+            test=16, overrides={
+                "model": VITL16_CFG["model"], "remat": True, "nframe": 1,
+                "samp_policy": "uniform", "max_seq_len": 32,
+                "max_txt_len": 20, "max_n_example_per_group": 1,
+                "train_batch_size": 8, "gradient_accumulation_steps": 2,
+                "val_batch_size": 8, "num_train_epochs": 1, "num_valid": 2,
+                "min_valid_steps": 1, "learning_rate": 2e-4,
+                "gen_max_new_tokens": 10, "seed": 0})
+
+
+def git_flash_bwd_part_bounds(num_img, text_mask, h, dh):
+    """(bound_ms, bound_by) of K3's dQ launch (S, dP, dQ: 6*Dh FLOP an
+    attended pair) and dK/dV launch (S, dV, dP, dK: 8*Dh), each input read
+    and each output written once (bf16 tensors, f32 LSE and D, the int32
+    text mask), as flash_bounds counts K6's."""
+    b, l = text_mask.shape
+    s = num_img + l
+    pairs = attended_pairs(num_img, text_mask, h)
+    x, row, tm = b * h * s * dh * 2, b * h * s * 4, b * l * 4
+    return {"dq": roofline(6 * dh * pairs, 6 * x + 2 * row + tm),
+            "dkv": roofline(8 * dh * pairs, 6 * x + 2 * row + tm)}
+
+
+def phase_split_kernels(rate):
+    """K3 (git_flash_bwd_dq + git_flash_bwd_dkv) vs its plain version and
+    vs K2 at each SPLIT_SHAPES entry and rates 0 and ``rate``, with dQ
+    bit-identical across two launches; K3, K2, plain and SDPA times and
+    the bounds.  Returns the rows and the crossover in S per rate."""
+    rows = []
+    for name, (b, h, num_img, l, rows_plain) in SPLIT_SHAPES.items():
+        q, k, v, mask = _kernel_inputs(b, h, num_img, l, 64, seed=l + b)
+        gen = torch.Generator(device="cuda").manual_seed(b)
+        do = torch.randn(q.shape, generator=gen, device="cuda").to(q.dtype)
+        seed = torch.tensor([2 ** 31 - 99], dtype=torch.int32, device="cuda")
+        shape = {"B": b, "H": h, "S": num_img + l, "num_img": num_img,
+                 "L": l, "Dh": 64}
+        pairs = attended_pairs(num_img, mask, h)
+        bound = git_flash_bwd_bound(num_img, mask, h, 64)
+        parts = git_flash_bwd_part_bounds(num_img, mask, h, 64)
+        ok_mask = git_mask_ok(num_img, mask)[:, None]
+        for r in (0.0, rate):
+            o, lse = git_flash_attention(q, k, v, mask, num_img, r, seed)
+            args = (q, k, v, o, lse, do, mask, num_img, r, seed)
+            dq, delta = gf._launch_bwd_dq(*args)
+            dk, dv = gf._launch_bwd_dkv(q, k, v, lse, do, mask, num_img,
+                                        delta, r, seed)
+            dq_again, _ = gf._launch_bwd_dq(*args)
+            fused = gf._launch_bwd(*args)
+            sub = [x[:rows_plain] for x in (q, k, v, o, lse, do, mask)]
+            ref = gf.git_flash_backward_split_reference(*sub, num_img, r,
+                                                        seed)
+            torch.cuda.synchronize()
+            got = (dq, dk, dv)
+            vs_plain = {f"d{n}": _rel_err(g[:rows_plain], rf)
+                        for n, g, rf in zip("qkv", got, ref)}
+            vs_k2 = {f"d{n}": _rel_err(g, f)
+                     for n, g, f in zip("qkv", got, fused)}
+            bit_equal = bool(torch.equal(dq, dq_again))
+            del ref, fused, dq_again, got
+            row = {"phase": "split_kernels", "case": name, "rate": r,
+                   "shape": shape, "attended_pairs": pairs,
+                   "plain_rows": rows_plain,
+                   "max_abs_err_vs_plain": {n: e for n, (e, _) in
+                                            vs_plain.items()},
+                   "max_abs_ref_plain": {n: m for n, (_, m) in
+                                         vs_plain.items()},
+                   "max_abs_err_vs_k2": {n: e for n, (e, _) in
+                                         vs_k2.items()},
+                   "tol_rel": TOL_GRAD_REL, "dq_bit_identical": bit_equal,
+                   "dq_ms": cuda_ms(lambda: gf._launch_bwd_dq(*args),
+                                    reps=10),
+                   "dkv_ms": cuda_ms(lambda: gf._launch_bwd_dkv(
+                       q, k, v, lse, do, mask, num_img, delta, r, seed),
+                       reps=10),
+                   "k2_ms": cuda_ms(lambda: gf._launch_bwd(*args), reps=10),
+                   "plain_ms": cuda_ms(
+                       lambda: gf.git_flash_backward_split_reference(
+                           *sub, num_img, r, seed), reps=1, warmup=1),
+                   "bound_ms": bound[0], "bound_by": bound[1],
+                   "bound_ms_14dh": roofline(14 * 64 * pairs, 1)[0],
+                   "part_bound_ms": {p: parts[p][0] for p in parts},
+                   "part_bound_by": {p: parts[p][1] for p in parts}}
+            row["kernel_ms"] = row["dq_ms"] + row["dkv_ms"]
+            row["ms_per_1e9_pairs"] = {
+                "k3": row["kernel_ms"] / pairs * 1e9,
+                "k2": row["k2_ms"] / pairs * 1e9}
+            if r == 0.0:
+                ql, kl, vl = (x.detach().clone().requires_grad_(True)
+                              for x in (q, k, v))
+
+                def sdpa():
+                    return F.scaled_dot_product_attention(
+                        ql, kl, vl, attn_mask=ok_mask)
+
+                row["library_ms"] = (cuda_ms(lambda: sdpa().backward(do),
+                                             reps=5)
+                                     - cuda_ms(sdpa, reps=5))
+                row["library"] = "SDPA, boolean mask: fwd+bwd minus fwd"
+                del ql, kl, vl
+            else:
+                row["library_ms"] = None
+            emit(row)
+            check(bit_equal, f"K3's dQ differs between two launches: {row}")
+            check(all(e <= TOL_GRAD_REL * m for e, m in vs_plain.values())
+                  and all(e <= TOL_GRAD_REL * vs_plain[n][1]
+                          for n, (e, _) in vs_k2.items()),
+                  f"K3 disagrees with its plain version or with K2: {row}")
+            rows.append(row)
+            del o, lse, dq, dk, dv, delta
+        del q, k, v, do, mask, ok_mask
+        torch.cuda.empty_cache()
+    crossover = {}
+    for r in (0.0, rate):
+        wins = [(row["shape"]["S"], row["kernel_ms"] < row["k2_ms"])
+                for row in rows if row["rate"] == r]
+        wins.sort()
+        # the shortest measured S from which K3 wins at every longer one
+        cross = None
+        for s_len, _ in wins:
+            if all(w for s2, w in wins if s2 >= s_len):
+                cross = s_len
+                break
+        crossover[str(r)] = cross
+    emit({"phase": "split_crossover", "measured_min_seq": crossover,
+          "route_constants": {"0.0": gf._SPLIT_MIN_SEQ,
+                              str(rate): gf._SPLIT_MIN_SEQ_DROPOUT}})
+    return rows, crossover
+
+
+def _vitl16_grads(route, remat, inputs, seed):
+    """Loss, launch counts and f32 gradients of one training forward/
+    backward of GIT with ViT-L/14, backward route ``route`` ("k2"/"k3")."""
+    cfg = dict(VITL16_CFG, remat=remat)
+    _, model = build_model(cfg, dtype=torch.bfloat16, device="cuda",
+                           generator=torch.Generator().manual_seed(seed))
+    model.train()
+    saved = (gf.FUSED_BWD, gf._SPLIT_MIN_SEQ, gf._SPLIT_MIN_SEQ_DROPOUT)
+    gf.FUSED_BWD = route == "k2"
+    gf._SPLIT_MIN_SEQ = gf._SPLIT_MIN_SEQ_DROPOUT = None
+    try:
+        _build.reset_launch_counts()
+        loss = model(*inputs, deterministic=False,
+                     generator=torch.Generator(device="cuda").manual_seed(
+                         seed))["loss"]
+        loss.backward()
+        torch.cuda.synchronize()
+    finally:
+        gf.FUSED_BWD, gf._SPLIT_MIN_SEQ, gf._SPLIT_MIN_SEQ_DROPOUT = saved
+    out = dict(loss=loss.item(), launches=dict(_build.launch_counts),
+               grads={n: p.grad.float() for n, p in model.named_parameters()},
+               qkv=[lyr.attention.qkv.weight.grad.abs().sum().item()
+                    for lyr in model.layers])
+    del model, loss
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_vitl16_grad_check():
+    """GIT with ViT-L/14 at full width, 16 frames, S = 4144, remat on,
+    dropout 0.1/0.1 with equal draws: the backward through K3 vs through
+    K2, and remat on vs off, loss and every parameter's gradient."""
+    seed = VITL16["seed"]
+    rng = np.random.default_rng(seed)
+    b, t, l = VITL16["grad_check_rows"], VITL16["frames"], VITL16["text_len"]
+    ids = torch.from_numpy(rng.integers(1000, 2000, (b, l))).long().cuda()
+    mask = torch.ones_like(ids)
+    mask[1:, 21:] = 0
+    labels = torch.where(mask == 1, ids, torch.full_like(ids, -100))
+    labels[:, :8] = -100
+    px = torch.from_numpy(rng.standard_normal(
+        (b, t, VITL16["img"], VITL16["img"], 3), dtype=np.float32)).cuda()
+    inputs = (ids, mask, px, labels)
+    launches = {name: 0 for name in _build.COUNTERS}
+    runs = {}
+    for key in (("k3", True), ("k2", True), ("k3", False)):
+        runs[key] = _vitl16_grads(*key, inputs, seed)
+        for name, n in runs[key]["launches"].items():
+            launches[name] += n
+
+    def compare(a, ref):
+        rel = {n: ((g - ref["grads"][n]).norm()
+                   / ref["grads"][n].norm().clamp(min=1e-20)).item()
+               for n, g in a["grads"].items()}
+        worst = max(rel, key=rel.get)
+        return {"loss_rel_err": abs(a["loss"] - ref["loss"])
+                / abs(ref["loss"]),
+                "grad_rel_err_max": rel[worst], "grad_rel_err_worst": worst,
+                "grad_rel_err_median": float(np.median(list(rel.values())))}
+
+    k3, k2, plain = runs["k3", True], runs["k2", True], runs["k3", False]
+    row = {"phase": "vitl16_grad_check", "rows": b, "frames": t,
+           "seq_len": t * 257 + l, "remat": True,
+           "dropout": VITL16_CFG["model"]["hidden_dropout_prob"],
+           "attention_dropout":
+               VITL16_CFG["model"]["attention_probs_dropout_prob"],
+           "loss_k3": k3["loss"], "loss_k2": k2["loss"],
+           "loss_k3_no_remat": plain["loss"],
+           "k3_vs_k2": compare(k3, k2), "remat_vs_no_remat": compare(
+               k3, plain),
+           "tol_loss_rel": TOL_LOSS_REL, "tol_grad_rel": TOL_PARAM_GRAD_REL,
+           "launches_k3_route": k3["launches"],
+           "launches_k2_route": k2["launches"],
+           "text_qkv_grad_abs_sum_k3": k3["qkv"]}
+    emit(row)
+    n_layers = len(k3["qkv"])
+    check(all(k3["launches"][n] == n_layers for n in
+              ("git_flash_fwd", "git_flash_bwd_dq", "git_flash_bwd_dkv"))
+          and k3["launches"]["git_flash_bwd"] == 0
+          and k2["launches"]["git_flash_bwd"] == n_layers
+          and k2["launches"]["git_flash_bwd_dq"] == 0,
+          f"the routes did not launch K3 / K2 once a layer: {row}")
+    check(all(x > 0 for x in k3["qkv"]),
+          "a text layer's qkv.weight got no gradient through K3")
+    for what in ("k3_vs_k2", "remat_vs_no_remat"):
+        check(row[what]["loss_rel_err"] <= TOL_LOSS_REL
+              and row[what]["grad_rel_err_max"] <= TOL_PARAM_GRAD_REL,
+              f"vitl16 {what} gradients disagree: {row}")
+    del runs
+    torch.cuda.empty_cache()
+    return row, launches
+
+
+class MemoryFrameStore:
+    """Seeded frames held in host memory, with FrameStoreReader's methods
+    (the card's installation has no h5py): (N, K, H, W, 3) float32."""
+
+    def __init__(self, frames: np.ndarray):
+        self.frames = frames
+        n, k, hw, _, c = frames.shape
+        self.shape = (n, k, c * hw * hw)
+
+    def read_frames_nhwc(self, row, frame_inds):
+        return self.frames[row][np.asarray(frame_inds).reshape(-1)]
+
+
+def _task_files(root):
+    """msvd_qa-format annotations of TASK's videos and a vidmapping under
+    ``root``; returns the config's path overrides."""
+    words = ["what", "who", "how", "where", "when"]
+    subjects = ["man", "woman", "dog", "cat"]
+    answers = ["cooking", "running", "ball", "brown", "beach", "man"]
+    vids = [f"vid{i:04d}" for i in range(TASK["videos"])]
+
+    def annos(n_per_video, videos):
+        out = []
+        for i, vid in enumerate(videos):
+            for j in range(n_per_video):
+                w = words[(i + j) % len(words)]
+                out.append({"question": f"{w} is the "
+                                        f"{subjects[(i + j) % 4]} doing",
+                            "answer": answers[(3 * i + j) % len(answers)],
+                            "video": f"{vid}.avi", "answer_type": w})
+        return out
+
+    paths = {}
+    for split, rows in (("train", annos(TASK["questions"], vids)),
+                        ("val", annos(1, vids[:TASK["val"]])),
+                        ("test", annos(1, vids[-TASK["test"]:]))):
+        paths[split] = os.path.join(root, f"qa_{split}.json")
+        with open(paths[split], "w") as f:
+            json.dump(rows, f)
+    paths["vidmapping"] = os.path.join(root, "vidmapping.json")
+    with open(paths["vidmapping"], "w") as f:
+        json.dump({v: i for i, v in enumerate(vids)}, f)
+    return {"train_datasets": [{"name": "msvd_qa", "txt": paths["train"],
+                                "img": "memory"}],
+            "val_datasets": [{"name": "msvd_qa", "txt": paths["val"],
+                              "img": "memory"}],
+            "inference_txt_db": paths["test"], "inference_img_db": "memory",
+            "vid_mapping": paths["vidmapping"]}
+
+
+def phase_task_loop():
+    """``start_training`` at the vitl16 shape, on the card, through its
+    normal entry (a config file parsed by get_video_qa_args), frames from
+    an in-memory store: 4 AdamW updates of 2 micros of 8 questions over 16
+    frames, one in-loop validation and the final one.  The step, the
+    prefetcher and validate are wrapped to time them; nothing else in the
+    loop changes."""
+    t_setup = time.perf_counter()
+    rng = np.random.default_rng(0)
+    frames = rng.standard_normal(
+        (TASK["videos"], TASK["stored_frames"], TASK["img"], TASK["img"], 3),
+        dtype=np.float32)
+    store = MemoryFrameStore(frames)
+    step_s, wait_s, val_s = [], [], []
+    real_step = train_steps.make_scan_train_step
+    real_validate = run_video_qa.validate
+    real_prefetcher = run_video_qa.DevicePrefetcher
+
+    def timed_step(*a, **kw):
+        step = real_step(*a, **kw)
+
+        def run(state, batch, seed):
+            t0 = time.perf_counter()
+            out = step(state, batch, seed)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            return out
+        return run
+
+    class TimedPrefetcher(real_prefetcher):
+        def __next__(self):
+            t0 = time.perf_counter()
+            try:
+                return super().__next__()
+            finally:
+                wait_s.append(time.perf_counter() - t0)
+
+    def timed_validate(*a, **kw):
+        t0 = time.perf_counter()
+        out = real_validate(*a, **kw)
+        val_s.append(time.perf_counter() - t0)
+        return out
+
+    with tempfile.TemporaryDirectory() as root:
+        with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                               "configs", "msvd_qa_base.json")) as f:
+            cfg = json.load(f)
+        # no weights or tokenizer files are in the repo: seeded random
+        # weights and the built-in WordPiece vocab
+        cfg["model"].pop("pretrained_weights")
+        cfg.pop("tokenizer_dir")
+        cfg.update(TASK["overrides"], output_dir=os.path.join(root, "out"),
+                   **_task_files(root))
+        path = os.path.join(root, "cfg.json")
+        with open(path, "w") as f:
+            json.dump(cfg, f)
+        args = run_video_qa.get_video_qa_args(["--config", path])
+        train_steps.make_scan_train_step = timed_step
+        run_video_qa.DevicePrefetcher = TimedPrefetcher
+        run_video_qa.validate = timed_validate
+        try:
+            torch.cuda.synchronize()
+            setup_s = time.perf_counter() - t_setup
+            torch.cuda.reset_peak_memory_stats()
+            _build.reset_launch_counts()
+            t0 = time.perf_counter()
+            result = run_video_qa.start_training(
+                args, open_store=lambda path: store)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = dict(_build.launch_counts)
+        finally:
+            train_steps.make_scan_train_step = real_step
+            run_video_qa.DevicePrefetcher = real_prefetcher
+            run_video_qa.validate = real_validate
+        out = cfg["output_dir"]
+        with open(os.path.join(out, "log", "scalars.jsonl")) as f:
+            scalars = [json.loads(line) for line in f]
+        losses = [r["value"] for r in scalars if r["tag"] == "train/loss"]
+        ckpts = sorted(os.listdir(os.path.join(out, "ckpt")))
+        restore = sorted(os.listdir(os.path.join(out, "restore")))
+    steady = step_s[1:]
+    per_update = TASK["overrides"]["gradient_accumulation_steps"] * \
+        TASK["overrides"]["train_batch_size"]
+    s_len = TASK["stored_frames"] * 257 + TASK["overrides"]["max_seq_len"]
+    row = {"phase": "task_loop",
+           "model": "git-large (ViT-L/14) video QA, seeded random weights",
+           "config": "configs/msvd_qa_base.json + " + json.dumps(
+               {k: v for k, v in TASK["overrides"].items() if k != "model"}),
+           "seq_len": s_len, "frames": TASK["stored_frames"],
+           "backward_route": bwd_kernels(s_len, TASK["overrides"]["model"][
+               "attention_probs_dropout_prob"]),
+           "updates": result["global_step"], "setup_s": setup_s,
+           "wall_s": wall, "update_s": step_s,
+           "ms_per_update": float(np.mean(steady)) * 1e3,
+           "qa_pairs_per_s": per_update / float(np.mean(steady)),
+           "prefetch_wait_ms_per_update": float(np.mean(wait_s[1:])) * 1e3,
+           "prefetch_wait_first_ms": wait_s[0] * 1e3,
+           "validation_s": val_s,
+           "max_memory_allocated_gb":
+               torch.cuda.max_memory_allocated() / 2 ** 30,
+           "losses": losses, "ckpt": ckpts, "restore": restore,
+           "val": result["val"], "test": result["test"],
+           "launches": launches}
+    emit(row)
+    check(result["global_step"] == 4 and len(losses) == 4
+          and all(np.isfinite(losses)),
+          f"task loop: not 4 finite train/loss entries: {losses}")
+    check(ckpts == ["model_step_2.pt", "model_step_4.pt"] and restore,
+          f"task loop: snapshots {ckpts}, restore {restore}")
+    check("overall_acc" in result["val"] and "overall_acc" in result["test"],
+          "task loop: a final score dict is missing")
+    route = bwd_kernels(s_len, TASK["overrides"]["model"][
+        "attention_probs_dropout_prob"])
+    check(all(launches[n] > 0 for n in
+              ("git_flash_fwd", _build.HASH_DROPOUT) + route),
+          f"task loop: a kernel of its route was not launched: {launches}")
+    torch.cuda.empty_cache()
+    return row, launches
+
+
+PATHS = ("git_serve", "git_train", "blip_serve", "blip_train",
+         "vitl16_grad_check", "task_loop")
+KERNELS = ("git_flash_fwd", "git_flash_bwd", "git_flash_bwd_dq",
+           "git_flash_bwd_dkv", _build.HASH_DROPOUT, "flash_fwd",
+           "flash_bwd_dq", "flash_bwd_dkv")
 
 
 def main() -> int:
@@ -1191,16 +1629,25 @@ def main() -> int:
                                                   BLIP["seed"])
     phase_blip_grad_check(BLIP["seed"])
     blip_train_row, blip_train = phase_blip_train(BLIP_TRAIN["seed"])
+    split_rows, crossover = phase_split_kernels(rate)
+    vitl16_row, vitl16 = phase_vitl16_grad_check()
+    task_row, task = phase_task_loop()
 
     by_path = {name: dict(zip(PATHS, (counts.get(name, 0) for counts in
                                       (git_serve, git_train, blip_serve,
-                                       blip_train))))
+                                       blip_train, vitl16, task))))
                for name in KERNELS}
     needed = {"git_serve": ("git_flash_fwd",),
-              "git_train": ("git_flash_fwd", "git_flash_bwd",
-                            _build.HASH_DROPOUT),
+              "git_train": ("git_flash_fwd", _build.HASH_DROPOUT)
+              + bwd_kernels(TRAIN["frames"] * tpf + TRAIN["max_seq_len"],
+                            rate),
               "blip_serve": ("flash_fwd",),
-              "blip_train": ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+              "blip_train": ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"),
+              "vitl16_grad_check": ("git_flash_fwd", "git_flash_bwd_dq",
+                                    "git_flash_bwd_dkv",
+                                    _build.HASH_DROPOUT),
+              "task_loop": ("git_flash_fwd", _build.HASH_DROPOUT)
+              + bwd_kernels(task_row["seq_len"], rate)}
     check(all(by_path[k][path] > 0 for path, ks in needed.items()
               for k in ks),
           f"a kernel of a path was not launched: {by_path}")
@@ -1223,6 +1670,33 @@ def main() -> int:
     def launches(name):
         return {"launches": sum(by_path[name].values()),
                 "launches_by_path": by_path[name]}
+
+    k3 = next(r for r in split_rows
+              if r["case"] == "vitl16" and r["rate"] == rate)
+    k3_rate0 = next(r for r in split_rows
+                    if r["case"] == "vitl16" and r["rate"] == 0.0)
+
+    def k3_entry(part, name, what):
+        return {"name": name, "route": "cuda",
+                "source": "sasvqa_torch/ops/csrc/git_flash_bwd_split.cu",
+                "replaces": what, **launches(name),
+                "max_abs_err": max(r["max_abs_err_vs_plain"][p]
+                                   for r in split_rows
+                                   for p in (("dq",) if part == "dq"
+                                             else ("dk", "dv"))),
+                "ms": k3[f"{part}_ms"], "plain_ms": k3["plain_ms"],
+                "bound_ms": k3["part_bound_ms"][part],
+                "bound_by": k3["part_bound_by"][part],
+                "library_ms": k3_rate0["library_ms"],
+                "at": f"vitl16 shape (8, 12, 4144, 64), rate {rate}; plain "
+                      f"time of the whole backward at 2 rows, library (SDPA "
+                      f"fwd+bwd minus fwd) at rate 0",
+                "whole_backward": {"ms": k3["kernel_ms"],
+                                   "bound_ms": k3["bound_ms"],
+                                   "bound_by": k3["bound_by"],
+                                   "k2_ms": k3["k2_ms"]},
+                "crossover_min_seq": crossover,
+                "card": smi}
 
     def k6_entry(part, name, what):
         return {"name": name, "route": "cuda",
@@ -1273,11 +1747,15 @@ def main() -> int:
         "at": f"training shape, rate {rate}; library at rate 0",
         "ms_rate0": bwd0["kernel_ms"], "plain_ms_rate0": bwd0["plain_ms"],
         "ragged_ms": ragged[f"bwd_{rate}"]["kernel_ms"],
-        "card": smi}, {
+        "card": smi},
+        k3_entry("dq", "git_flash_bwd_dq",
+                 "sasvqa_tpu/ops/git_flash.py:296 (_dq_kernel)"),
+        k3_entry("dkv", "git_flash_bwd_dkv",
+                 "sasvqa_tpu/ops/git_flash.py:346 (_dkv_kernel)"), {
         "name": "hash_dropout", "route": "cuda",
         "source": "sasvqa_torch/ops/csrc/git_flash_common.cuh",
         "replaces": "sasvqa_tpu/ops/git_flash.py:136 (_hash_keep, "
-                    "_dropout_block), inside K1 and K2",
+                    "_dropout_block), inside K1, K2 and K3",
         **launches(_build.HASH_DROPOUT),
         "max_abs_err": fwd["max_abs_err_o"],
         "ms": hash_ms, "plain_ms": main_t["hash_plain_ms"],

@@ -1,5 +1,6 @@
-"""Batch collators (counterpart of sasvqa_tpu/data/dataset.py): GIT
-generative batches and CLIP/BLIP classification batches.
+"""The video-QA dataset and its batch collators (counterpart of
+sasvqa_tpu/data/dataset.py): GIT generative batches and CLIP/BLIP
+classification batches.
 
 Text pads to a fixed ``max_txt_len``; frames are re-sampled on the host
 by sampling/policies.py into a static (B_groups, T, H, W, C) array.
@@ -9,15 +10,16 @@ package's ``"bf16"`` host staging needs ``ml_dtypes`` and is not ported.
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Mapping, Optional, Sequence
+import random
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 
 from sasvqa_torch.core.logging import LOGGER
 from sasvqa_torch.core.pixels import quantize_u8
+from sasvqa_torch.data.annotations import IGNORE_INDEX
+from sasvqa_torch.data.frame_store import LazyVideoFrames
 from sasvqa_torch.sampling import policies
-
-IGNORE_INDEX = -100
 
 PIXEL_DTYPES = {"f32": np.float32, "u8": np.uint8}
 
@@ -30,6 +32,78 @@ def _pixel_dtype(name: str):
     if name not in PIXEL_DTYPES:
         raise ValueError(f"unknown pixel_dtype {name!r}")
     return PIXEL_DTYPES[name]
+
+
+class VideoQADataset:
+    """Grouped datalist + frame store (reference dataset_video_qa.py:17-100).
+
+    ``frame_store`` is a :class:`~sasvqa_torch.data.frame_store.
+    FrameStoreReader` or any object with its ``shape`` and
+    ``read_frames_nhwc``; groups hand collators a
+    :class:`~sasvqa_torch.data.frame_store.LazyVideoFrames` handle, so
+    only the frames a policy selects are read."""
+
+    def __init__(self, task_type: str,
+                 grouped_datalist: List[Tuple[str, List[Dict[str, Any]]]],
+                 frame_store, vid2id: Dict[str, int],
+                 ans2label: Dict[str, int], return_label: bool = True,
+                 is_train: bool = True):
+        self.task_type = task_type
+        self.datalist = grouped_datalist
+        self.store = frame_store
+        self.vid2id = vid2id
+        self.ans2label = ans2label
+        self.return_label = return_label
+        self.is_train = is_train
+        self.open_ended = task_type in ("frameqa", "msrvtt_qa", "msvd_qa")
+        self.qid2data = {d["question_id"]: d
+                         for _, group in grouped_datalist for d in group}
+
+    def __len__(self) -> int:
+        return len(self.datalist)
+
+    def get_group(self, index: int, _retries: int = 3) -> Dict[str, Any]:
+        """A missing or unreadable video is replaced by a random other
+        group in training, at most ``_retries`` times.  Eval never
+        substitutes: predictions are attributed by batch-plan position,
+        so a swap would score the substitute's answer against the
+        original question; it raises instead."""
+        vid, examples = self.datalist[index]
+        try:
+            row = self.vid2id[vid]
+            if not 0 <= int(row) < self.store.shape[0]:
+                raise IndexError(f"vidmapping row {row} outside store "
+                                 f"{self.store.shape}")
+            frames = LazyVideoFrames(self.store, row)
+        except (KeyError, IndexError, OSError) as e:
+            if _retries <= 0 or not self.is_train:
+                raise RuntimeError(
+                    f"failed to fetch video {vid!r}"
+                    + ("" if self.is_train else
+                       " (eval never substitutes — fix the store)")) from e
+            LOGGER.warning(f"failed to load video {vid!r} ({e}); "
+                           f"substituting a random group")
+            return self.get_group(random.randrange(len(self)),
+                                  _retries=_retries - 1)
+        exs = [self._single_example(e) for e in examples]
+        # the group's sampled_inds are its first example's, as the
+        # reference's (dataset_video_qa.py:74)
+        return dict(vid=frames, examples=exs, n_examples=len(exs),
+                    sampled_inds=exs[0].get("sampled_inds"))
+
+    def _single_example(self, data: Dict[str, Any]) -> Dict[str, Any]:
+        ex = dict(q_str=data["question"], question_id=data["question_id"],
+                  label=data["answer"])
+        if data.get("sampled_inds") is not None:
+            ex["sampled_inds"] = data["sampled_inds"]
+        if self.task_type in ("action", "transition"):
+            ex["options_str_list"] = data["options"]
+        elif self.open_ended and self.return_label:
+            ex["str_label"] = ex["label"]
+            ex["label"] = self.ans2label.get(ex["label"], IGNORE_INDEX)
+        if not self.return_label:
+            ex["label"] = None
+        return ex
 
 
 def _resample_frames(items: List[Dict[str, Any]], policy: str, nframe: int,

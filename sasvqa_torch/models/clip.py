@@ -13,6 +13,7 @@ from typing import Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from sasvqa_torch.models.layers import (Dense, Embed, LayerNorm, PatchEmbed,
                                         PreLNBlock, init_params)
@@ -40,15 +41,26 @@ CLIP_VIT_L14_VISION = CLIPVisionConfig(hidden_size=1024,
 class CLIPVisionEncoder(nn.Module):
     """``post_ln_all_tokens``: GIT post-LNs every token, plain CLIP only
     the CLS.  ``with_projection`` adds the bias-free visual projection.
-    Weights are drawn from ``generator`` (default: seeded with 0)."""
+    ``remat`` recomputes each block in the backward instead of keeping
+    its activations (``torch.utils.checkpoint``, full recompute as
+    ``nn.remat`` without a policy); a named ``remat_policy`` (a
+    ``jax.checkpoint_policies`` name in the JAX package) is not ported and
+    raises.  Weights are drawn from ``generator`` (default: seeded with
+    0)."""
 
     def __init__(self, config: CLIPVisionConfig,
                  dtype: torch.dtype = torch.float32,
                  post_ln_all_tokens: bool = False,
                  with_projection: bool = True,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 remat: bool = False, remat_policy: Optional[str] = None):
         super().__init__()
+        if remat_policy:
+            raise NotImplementedError(
+                f"remat_policy {remat_policy!r} is not ported (full "
+                f"recompute only; ROADMAP.md lists the policies)")
         c = config
+        self.remat = remat
         self.config = c
         self.dtype = dtype
         self.post_ln_all_tokens = post_ln_all_tokens
@@ -82,7 +94,11 @@ class CLIPVisionEncoder(nn.Module):
         pos = torch.arange(x.shape[1], device=x.device)[None, :]
         x = self.pre_layrnorm(x + self.position_embedding(pos))
         for i in range(self.num_layers):
-            x = getattr(self, f"layers_{i}")(x)
+            block = getattr(self, f"layers_{i}")
+            if self.remat and torch.is_grad_enabled():
+                x = checkpoint(block, x, use_reentrant=False)
+            else:
+                x = block(x)
         if self.post_ln_all_tokens:
             x = self.post_layernorm(x)
             pooled = x[:, 0]

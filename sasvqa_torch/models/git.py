@@ -206,12 +206,14 @@ class GITForCausalLM(nn.Module):
 
     ``flash``: None = auto (the git-flash kernel on CUDA tensors when the
     combined sequence reaches 512 tokens), True = the git-flash route,
-    False = the dense additive-bias route.  Weights
-    are drawn from ``generator`` (default: seeded with 0)."""
+    False = the dense additive-bias route.  ``remat``/``remat_policy``
+    go to the vision tower (:class:`CLIPVisionEncoder`).  Weights are
+    drawn from ``generator`` (default: seeded with 0)."""
 
     def __init__(self, config: GITConfig, dtype: torch.dtype = torch.float32,
                  flash: Optional[bool] = None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 remat: bool = False, remat_policy: Optional[str] = None):
         super().__init__()
         c = config
         self.config = c
@@ -221,7 +223,8 @@ class GITForCausalLM(nn.Module):
             else torch.Generator().manual_seed(0)
         self.image_encoder = CLIPVisionEncoder(
             c.vision, dtype=dtype, post_ln_all_tokens=True,
-            with_projection=False, generator=gen)
+            with_projection=False, generator=gen, remat=remat,
+            remat_policy=remat_policy)
         self.visual_projection = Dense(c.vision.hidden_size, c.hidden_size,
                                        dtype=dtype)
         self.visual_projection_ln = LayerNorm(

@@ -4,10 +4,13 @@
 ``cfg`` is a mapping with ``cfg["model"]["pretrained_model"]`` naming the
 checkpoint (``"microsoft/git-base-msrvtt-qa"``,
 ``"Salesforce/blip-vqa-base"``, ``"tiny-git"``, ``"tiny-blip"``, ...),
-optional ``cfg["model"]["vocab_size"]`` / ``cfg["img_size"]`` overrides
-and, for the classifier families, the head settings (``num_labels``,
-``loss_type``, ``classifier``, ``cls_hidden_scale``,
-``model.hidden_dropout_prob``, ``model.attn_type``).  Weights are drawn
+optional ``cfg["model"]["vocab_size"]`` / ``cfg["img_size"]`` overrides,
+the GIT dropouts (``model.hidden_dropout_prob``,
+``model.attention_probs_dropout_prob``) and vision-tower remat
+(``remat``/``remat_policy`` in ``cfg["model"]`` or ``cfg``) and, for the
+classifier families, the head settings (``num_labels``, ``loss_type``,
+``classifier``, ``cls_hidden_scale``, ``model.hidden_dropout_prob``,
+``model.attn_type``).  Weights are drawn
 from a seeded generator: loading HF checkpoints is not ported yet.
 """
 
@@ -113,8 +116,19 @@ def build_model(cfg: Mapping[str, Any], dtype: torch.dtype = torch.float32,
     gc = _git_config(name)
     if vocab_override:
         gc = dataclasses.replace(gc, vocab_size=vocab_override)
+    # HF GitConfig knob names for both dropouts
+    hd = cfg["model"].get("hidden_dropout_prob")
+    if hd is not None:
+        gc = dataclasses.replace(gc, dropout=float(hd))
+    ad = cfg["model"].get("attention_probs_dropout_prob")
+    if ad is not None:
+        gc = dataclasses.replace(gc, attention_dropout=float(ad))
     if img_size and img_size != gc.vision.image_size:
         gc = dataclasses.replace(
             gc, vision=dataclasses.replace(gc.vision, image_size=img_size))
-    model = GITForCausalLM(gc, dtype=dtype, generator=generator)
+    remat = bool(cfg["model"].get("remat", cfg.get("remat", False)))
+    remat_policy = cfg["model"].get("remat_policy",
+                                    cfg.get("remat_policy", None)) or None
+    model = GITForCausalLM(gc, dtype=dtype, generator=generator, remat=remat,
+                           remat_policy=remat_policy)
     return family, model.to(dev).eval()

@@ -10,10 +10,12 @@ once.
 
 ``launch_counts`` holds one integer per kernel.  A wrapper adds one where
 it launches its kernel and nowhere else, so a run can show that its main
-path went through the kernels.  ``HASH_DROPOUT`` counts the launches of
-K1 and K2 that ran the in-kernel dropout hash (``rate`` > 0).  The
-library ``flash_bwd`` holds two kernels, counted apart as
-``flash_bwd_dq`` and ``flash_bwd_dkv``.
+path went through the kernels.  ``HASH_DROPOUT`` counts the kernel
+launches that ran the in-kernel dropout hash (``rate`` > 0): K1, K2, and
+each of K3's two kernels.  The libraries ``git_flash_bwd_split`` (K3)
+and ``flash_bwd`` (K6) hold two kernels each, counted apart as
+``git_flash_bwd_dq``/``git_flash_bwd_dkv`` and
+``flash_bwd_dq``/``flash_bwd_dkv``.
 """
 
 from __future__ import annotations
@@ -35,11 +37,13 @@ BUILD_DIR = os.path.join(_HERE, "build")
 # kernel name -> source file under csrc/
 SOURCES = {"git_flash_fwd": "git_flash_fwd.cu",
            "git_flash_bwd": "git_flash_bwd.cu",
+           "git_flash_bwd_split": "git_flash_bwd_split.cu",
            "flash_fwd": "flash_fwd.cu",
            "flash_bwd": "flash_bwd.cu"}
 HASH_DROPOUT = "hash_dropout"
-COUNTERS = ("git_flash_fwd", "git_flash_bwd", HASH_DROPOUT, "flash_fwd",
-            "flash_bwd_dq", "flash_bwd_dkv")
+COUNTERS = ("git_flash_fwd", "git_flash_bwd", "git_flash_bwd_dq",
+            "git_flash_bwd_dkv", HASH_DROPOUT, "flash_fwd", "flash_bwd_dq",
+            "flash_bwd_dkv")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

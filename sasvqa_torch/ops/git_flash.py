@@ -10,15 +10,18 @@ drawn from a coordinate hash (:func:`hash_dropout_factor`), and is
 differentiable through :class:`_GitFlashFunction`:
 
 - CUDA tensors launch the hand-written Hopper kernels
-  ``csrc/git_flash_fwd.cu`` (replaces the Pallas TPU kernel
-  ``_fwd_kernel``) and ``csrc/git_flash_bwd.cu`` (replaces
-  ``_fused_bwd_kernel``); both regenerate the dropout mask in-kernel
-  (``hash_keep`` in ``csrc/git_flash_common.cuh``, replacing
-  ``_hash_keep``).  A CUDA tensor the kernels cannot take raises;
+  ``csrc/git_flash_fwd.cu`` (K1, replaces the Pallas TPU kernel
+  ``_fwd_kernel``) and, for the backward, ``csrc/git_flash_bwd.cu`` (K2,
+  replaces ``_fused_bwd_kernel``) or ``csrc/git_flash_bwd_split.cu`` (K3,
+  replaces ``_dq_kernel``/``_dkv_kernel``), as :func:`_fused_eligible`
+  routes them; all regenerate the dropout mask in-kernel (``hash_keep``
+  in ``csrc/git_flash_common.cuh``, replacing ``_hash_keep``).  A CUDA
+  tensor the kernels cannot take raises;
 - CPU tensors take :func:`git_flash_attention_reference` and
-  :func:`git_flash_backward_reference`, the plain PyTorch versions of the
-  same functions, which the tests hold against the JAX package and the
-  kernels are held against on the card.
+  :func:`git_flash_backward_reference` (fused numerics) or
+  :func:`git_flash_backward_split_reference` (split numerics), the plain
+  PyTorch versions of the same functions, which the tests hold against
+  the JAX package and the kernels are held against on the card.
 
 The forward returns ``(O, LSE)``: O in the input dtype (B, H, S, Dh),
 LSE in f32 (B, H, S); LSE is not differentiable.
@@ -37,6 +40,8 @@ from sasvqa_torch.ops.attention import NEG_INF
 
 KERNEL = "git_flash_fwd"
 KERNEL_BWD = "git_flash_bwd"
+KERNEL_SPLIT = "git_flash_bwd_split"
+COUNT_DQ, COUNT_DKV = "git_flash_bwd_dq", "git_flash_bwd_dkv"
 HEAD_DIM = 64
 
 SeedLike = Union[int, torch.Tensor, None]
@@ -178,19 +183,12 @@ def git_flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
     return out, lse
 
 
-def git_flash_backward_reference(q: torch.Tensor, k: torch.Tensor,
-                                 v: torch.Tensor, o: torch.Tensor,
-                                 lse: torch.Tensor, do: torch.Tensor,
-                                 attention_mask: torch.Tensor, num_img: int,
-                                 rate: float = 0.0, seed: SeedLike = None
-                                 ) -> Tuple[torch.Tensor, torch.Tensor,
-                                            torch.Tensor]:
-    """Plain PyTorch version of the fused backward kernel, with its
-    numerics (JAX ``_fused_bwd_kernel``): P = exp(S - LSE) recomputed;
-    dV = (P*keep)^T dO; dP = (dO V^T)*keep; D = rowsum(dO*O) over the
-    dropped O; dS = P*(dP - D)*scale cast to the input dtype; dK = dS^T Q
-    and dQ = dS K with f32 accumulation, cast at the end."""
+def _backward_plain(q, k, v, o, lse, do, attention_mask, num_img, rate,
+                    seed, scale_after: bool):
+    """The plain backward; ``scale_after`` takes the split kernels'
+    numerics (scale after the f32 sums), else the fused kernel's."""
     dt = q.dtype
+    scale = q.shape[-1] ** -0.5
     p = torch.exp(_masked_scores(q, k, attention_mask, num_img)
                   - lse[..., None])
     dof = do.float()
@@ -203,10 +201,50 @@ def git_flash_backward_reference(q: torch.Tensor, k: torch.Tensor,
     else:
         dv = torch.matmul(p.to(dt).float().transpose(-1, -2), dof)
     d_row = (dof * o.float()).sum(dim=-1, keepdim=True)
-    ds = (p * (dp - d_row) * q.shape[-1] ** -0.5).to(dt).float()
-    dk = torch.matmul(ds.transpose(-1, -2), q.float())
-    dq = torch.matmul(ds, k.float())
+    ds = p * (dp - d_row)
+    if scale_after:
+        ds = ds.to(dt).float()
+        dk = torch.matmul(ds.transpose(-1, -2), q.float()) * scale
+        dq = torch.matmul(ds, k.float()) * scale
+    else:
+        ds = (ds * scale).to(dt).float()
+        dk = torch.matmul(ds.transpose(-1, -2), q.float())
+        dq = torch.matmul(ds, k.float())
     return dq.to(dt), dk.to(dt), dv.to(dt)
+
+
+def git_flash_backward_reference(q: torch.Tensor, k: torch.Tensor,
+                                 v: torch.Tensor, o: torch.Tensor,
+                                 lse: torch.Tensor, do: torch.Tensor,
+                                 attention_mask: torch.Tensor, num_img: int,
+                                 rate: float = 0.0, seed: SeedLike = None
+                                 ) -> Tuple[torch.Tensor, torch.Tensor,
+                                            torch.Tensor]:
+    """Plain PyTorch version of the fused backward kernel, with its
+    numerics (JAX ``_fused_bwd_kernel``): P = exp(S - LSE) recomputed;
+    dV = (P*keep)^T dO; dP = (dO V^T)*keep; D = rowsum(dO*O) over the
+    dropped O; dS = P*(dP - D)*scale cast to the input dtype; dK = dS^T Q
+    and dQ = dS K with f32 accumulation, cast at the end."""
+    return _backward_plain(q, k, v, o, lse, do, attention_mask, num_img,
+                           rate, seed, scale_after=False)
+
+
+def git_flash_backward_split_reference(q: torch.Tensor, k: torch.Tensor,
+                                       v: torch.Tensor, o: torch.Tensor,
+                                       lse: torch.Tensor, do: torch.Tensor,
+                                       attention_mask: torch.Tensor,
+                                       num_img: int, rate: float = 0.0,
+                                       seed: SeedLike = None
+                                       ) -> Tuple[torch.Tensor, torch.Tensor,
+                                                  torch.Tensor]:
+    """Plain PyTorch version of the split backward kernels, with their
+    numerics (JAX ``_dq_kernel``/``_dkv_kernel``): as
+    :func:`git_flash_backward_reference`, but dS = P*(dP - D) is cast to
+    the input dtype unscaled and the scale multiplies the f32 sums
+    dQ = dS K and dK = dS^T Q.  With Dh = 64 the scale is a power of two,
+    so the two orders round alike."""
+    return _backward_plain(q, k, v, o, lse, do, attention_mask, num_img,
+                           rate, seed, scale_after=True)
 
 
 # ---- the CUDA kernels ------------------------------------------------------
@@ -214,7 +252,8 @@ def git_flash_backward_reference(q: torch.Tensor, k: torch.Tensor,
 def _kernel_fn(name: str):
     fn = _fns.get(name)
     if fn is None:
-        lib = _build.load(name)
+        lib = _build.load(KERNEL_SPLIT if name in (COUNT_DQ, COUNT_DKV)
+                          else name)
         if name == KERNEL:
             fn = lib.git_flash_fwd
             fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
@@ -222,10 +261,16 @@ def _kernel_fn(name: str):
                            + [ctypes.c_float, ctypes.c_void_p,
                               ctypes.c_uint32, ctypes.c_float,
                               ctypes.c_void_p])
-        else:
+        elif name == KERNEL_BWD:
             fn = lib.git_flash_bwd
             fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 5
                            + [ctypes.c_longlong] * 24
+                           + [ctypes.c_float, ctypes.c_uint32,
+                              ctypes.c_float, ctypes.c_void_p])
+        else:   # git_flash_bwd_dq / git_flash_bwd_dkv: one argument layout
+            fn = getattr(lib, name)
+            fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
+                           + [ctypes.c_longlong] * 18
                            + [ctypes.c_float, ctypes.c_uint32,
                               ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -281,16 +326,22 @@ def _launch(q, k, v, attention_mask, num_img, rate=0.0, seed=None):
     return out, lse
 
 
+def _check_bwd(q, k, v, o, lse, do, attention_mask, num_img):
+    _check(attention_mask, num_img, q, k, v, o, do)
+    b, h, s, _ = q.shape
+    if lse.shape != (b, h, s) or lse.dtype != torch.float32 \
+            or not lse.is_contiguous():
+        raise ValueError("git_flash backward takes a contiguous (B, H, S) "
+                         "f32 LSE")
+
+
 def _launch_bwd(q, k, v, o, lse, do, attention_mask, num_img, rate=0.0,
                 seed=None):
     """K2 (with K4 inside when ``rate`` > 0) on CUDA tensors: returns
     (dQ, dK, dV) in bf16.  dQ accumulates in an f32 buffer by atomics
     and is cast afterwards."""
-    _check(attention_mask, num_img, q, k, v, o, do)
+    _check_bwd(q, k, v, o, lse, do, attention_mask, num_img)
     b, h, s, dh = q.shape
-    if lse.shape != (b, h, s) or lse.dtype != torch.float32 \
-            or not lse.is_contiguous():
-        raise ValueError("git_flash_bwd takes a contiguous (B, H, S) f32 LSE")
     q, k, v, o, do = (_build.kernel_ready(x) for x in (q, k, v, o, do))
     text_mask = attention_mask.to(torch.int32).contiguous()
     seed_t = _seed_tensor(seed, q.device)
@@ -321,24 +372,123 @@ def _launch_bwd(q, k, v, o, lse, do, attention_mask, num_img, rate=0.0,
     return dq_acc.to(q.dtype), dk, dv
 
 
+def _launch_bwd_dq(q, k, v, o, lse, do, attention_mask, num_img, rate=0.0,
+                   seed=None):
+    """The first kernel of K3 on CUDA tensors: D = rowsum(dO * O) (the
+    prologue), then dQ in bf16, written once in (B, S, H, Dh) memory
+    order.  Returns (dQ, D)."""
+    _check_bwd(q, k, v, o, lse, do, attention_mask, num_img)
+    b, h, s, dh = q.shape
+    q, k, v, o, do = (_build.kernel_ready(x) for x in (q, k, v, o, do))
+    text_mask = attention_mask.to(torch.int32).contiguous()
+    seed_t = _seed_tensor(seed, q.device)
+    thresh, inv_keep = _dropout_consts(rate)
+    dq = torch.empty((b, s, h, dh), dtype=q.dtype,
+                     device=q.device).transpose(1, 2)
+    delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    strides = [st for x in (q, k, v, o, do, dq) for st in x.stride()[:3]]
+    with torch.cuda.device(q.device):
+        err = _kernel_fn(COUNT_DQ)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), text_mask.data_ptr(),
+            seed_t.data_ptr(), delta.data_ptr(), dq.data_ptr(), b, h, s,
+            num_img, attention_mask.shape[1], *strides, dh ** -0.5, thresh,
+            inv_keep, stream)
+    _build.raise_on_error(KERNEL_SPLIT, err)
+    _build.count_launch(COUNT_DQ)
+    if rate > 0.0:
+        _build.count_launch(_build.HASH_DROPOUT)
+    return dq, delta
+
+
+def _launch_bwd_dkv(q, k, v, lse, do, attention_mask, num_img, delta,
+                    rate=0.0, seed=None):
+    """The second kernel of K3 on CUDA tensors: bf16 (dK, dV) from the D
+    that :func:`_launch_bwd_dq` computed, in (B, S, H, Dh) memory order."""
+    _check_bwd(q, k, v, q, lse, do, attention_mask, num_img)
+    b, h, s, dh = q.shape
+    if delta.shape != (b, h, s) or delta.dtype != torch.float32 \
+            or not delta.is_contiguous():
+        raise ValueError("git_flash_bwd_dkv takes a contiguous (B, H, S) "
+                         "f32 D")
+    q, k, v, do = (_build.kernel_ready(x) for x in (q, k, v, do))
+    text_mask = attention_mask.to(torch.int32).contiguous()
+    seed_t = _seed_tensor(seed, q.device)
+    thresh, inv_keep = _dropout_consts(rate)
+    shape = (b, s, h, dh)
+    dk = torch.empty(shape, dtype=q.dtype, device=q.device).transpose(1, 2)
+    dv = torch.empty(shape, dtype=q.dtype, device=q.device).transpose(1, 2)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    strides = [st for x in (q, k, v, do, dk, dv) for st in x.stride()[:3]]
+    with torch.cuda.device(q.device):
+        err = _kernel_fn(COUNT_DKV)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), text_mask.data_ptr(),
+            seed_t.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, s,
+            num_img, attention_mask.shape[1], *strides, dh ** -0.5, thresh,
+            inv_keep, stream)
+    _build.raise_on_error(KERNEL_SPLIT, err)
+    _build.count_launch(COUNT_DKV)
+    if rate > 0.0:
+        _build.count_launch(_build.HASH_DROPOUT)
+    return dk, dv
+
+
+def _launch_bwd_split(q, k, v, o, lse, do, attention_mask, num_img,
+                      rate=0.0, seed=None):
+    """K3 (with K4 inside both kernels when ``rate`` > 0) on CUDA tensors:
+    returns (dQ, dK, dV) in bf16, each written once, no atomics."""
+    dq, delta = _launch_bwd_dq(q, k, v, o, lse, do, attention_mask,
+                               num_img, rate, seed)
+    dk, dv = _launch_bwd_dkv(q, k, v, lse, do, attention_mask, num_img,
+                             delta, rate, seed)
+    return dq, dk, dv
+
+
+# The backward's route, as the JAX package's module flag: False sends
+# every backward through the split kernels (K3).
+FUSED_BWD = True
+
+# The shortest S from which the split kernels (K3) take the backward, per
+# dropout rate (0, > 0): the crossover past which K3 was measured faster
+# than K2 at every longer length; None = K2 at every length.  Measured by
+# chip_smoke.py (split_kernels) at S = 604, 1608, 3184 and 4144 on NVIDIA
+# H100 80GB HBM3, 700.00 W (PERF.md): K3 never won from 1608 up
+# (1.16-1.24x K2's time at rate 0, 1.18-1.23x at 0.1), so no crossover.
+_SPLIT_MIN_SEQ = None
+_SPLIT_MIN_SEQ_DROPOUT = None
+
+
+def _fused_eligible(s: int, rate: float = 0.0) -> bool:
+    """Whether the backward of a length-``s`` sequence at ``rate`` takes
+    the fused kernel (K2); the split kernels (K3) otherwise."""
+    cross = _SPLIT_MIN_SEQ_DROPOUT if rate > 0.0 else _SPLIT_MIN_SEQ
+    return FUSED_BWD and (cross is None or s < cross)
+
+
 def git_flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
                        attention_mask: torch.Tensor, num_img: int,
                        rate: float = 0.0, seed: SeedLike = None
                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dQ, dK, dV) of :func:`git_flash_attention` from its saved O and
-    LSE: K2 on CUDA tensors, :func:`git_flash_backward_reference` on CPU
-    tensors."""
+    LSE, routed by :func:`_fused_eligible`: K2 or K3 on CUDA tensors,
+    :func:`git_flash_backward_reference` or
+    :func:`git_flash_backward_split_reference` on CPU tensors."""
     args = (q, k, v, o, lse, do, attention_mask, num_img, rate, seed)
+    fused = _fused_eligible(q.shape[2], rate)
     if q.device.type == "cpu":
-        return git_flash_backward_reference(*args)
-    return _launch_bwd(*args)
+        return (git_flash_backward_reference(*args) if fused
+                else git_flash_backward_split_reference(*args))
+    return _launch_bwd(*args) if fused else _launch_bwd_split(*args)
 
 
 class _GitFlashFunction(torch.autograd.Function):
     """Counterpart of the JAX ``_git_flash_core`` custom VJP: the forward
-    saves q, k, v, O, LSE, the mask and the seed; the backward launches
-    K2 on CUDA tensors and runs the plain backward on CPU tensors."""
+    saves q, k, v, O, LSE, the mask and the seed; the backward is
+    :func:`git_flash_backward` (K2 or K3 on CUDA tensors, their plain
+    versions on CPU tensors)."""
 
     @staticmethod
     def forward(ctx, q, k, v, attention_mask, num_img, rate, seed):

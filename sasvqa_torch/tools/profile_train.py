@@ -1,6 +1,6 @@
 """Where a training update spends its time on the GPU.
 
-    python3 -m sasvqa_torch.tools.profile_train [--family git|blip]
+    python3 -m sasvqa_torch.tools.profile_train [--shape git|blip|vitl16]
                                                 [--trace DIR]
 
 Runs ``torch.profiler`` over one ``make_scan_train_step`` update at full
@@ -12,16 +12,22 @@ warm-up update, at the train phases' shapes of chip_smoke.py:
   S = 1608, AdamW;
 - ``blip``: BLIP-base classifier (1000 labels, mlp head, head dropout
   0.1), 4 micro-batches of 8 questions over 4 frames of 384x384 (577
-  tokens a frame), text length 20, Adam.
+  tokens a frame), text length 20, Adam;
+- ``vitl16``: GIT with the ViT-L/14 vision tower (the JAX package's
+  stretch configuration), remat on, both dropouts 0.1, 2 micro-batches
+  of 8 questions over 16 frames of 224x224 (257 tokens a frame), text
+  length 32, S = 4144, AdamW.
 
 Prints one JSON line: host wall ms (ending in a synchronize), the device
 time of every CUDA kernel summed, the device busy share, the launch
 count, the kernels that took the most device time, and the device time
-of the kernel groups (the port's own kernels, GEMMs, the rest).  A second
+of the kernel groups (the port's own kernels, GEMMs, the rest) and the
+port kernels' launch counts.  A second
 line splits one micro-batch's time (host clock, ending in a synchronize)
 into the vision tower's forward, the whole forward, forward+backward, the
 pixel upload and the optimizer update.  ``--trace DIR`` also writes a
-Chrome trace there.  Needs a GPU.
+Chrome trace there.  ``--family`` is the older spelling of ``--shape``.
+Needs a GPU.
 """
 
 from __future__ import annotations
@@ -34,6 +40,7 @@ import numpy as np
 import torch
 
 from sasvqa_torch.models.presets import build_model
+from sasvqa_torch.ops import _build
 from sasvqa_torch.tools.profile_serve import profile_part
 from sasvqa_torch.train.steps import (_LOSSES, create_train_state,
                                       make_scan_train_step)
@@ -56,6 +63,12 @@ SHAPES = {
                         "betas": [0.9, 0.999], "grad_norm": 5.0,
                         "decay": "constant"}),
 }
+SHAPES["vitl16"] = dict(
+    SHAPES["git"], batch=8, frames=16,
+    cfg={"model": {"pretrained_model": "microsoft/git-large-msrvtt-qa",
+                   "hidden_dropout_prob": 0.1,
+                   "attention_probs_dropout_prob": 0.1},
+         "remat": True})
 # kernel-name fragments of the port's hand-written kernels
 PORT_KERNELS = ("flash", "rowsum_product")
 
@@ -79,10 +92,11 @@ def _batch(shape, seed: int):
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--family", choices=sorted(SHAPES), default="git")
+    p.add_argument("--shape", "--family", choices=sorted(SHAPES),
+                   default="git")
     p.add_argument("--trace", default=None)
     args = p.parse_args(argv)
-    shape = SHAPES[args.family]
+    shape = SHAPES[args.shape]
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     _, model = build_model(shape["cfg"], dtype=torch.bfloat16, device="cuda",
@@ -97,8 +111,10 @@ def main(argv=None) -> int:
         metrics["loss"].item()
 
     update()                                   # warm-up
+    _build.reset_launch_counts()
     row = profile_part("train_update", update, args.trace, top=12,
                        keep_all=True)
+    launches = {k: v for k, v in _build.launch_counts.items() if v}
     groups = {"port_kernels": 0.0, "gemm": 0.0, "other": 0.0}
     for item in row["top_all"]:
         name = item["kernel"]
@@ -108,9 +124,9 @@ def main(argv=None) -> int:
                else "other")
         groups[key] += item["ms"]
     del row["top_all"]
-    row.update(family=args.family, k_micro=shape["k_micro"],
+    row.update(shape=args.shape, k_micro=shape["k_micro"],
                batch_size=shape["batch"], frames=shape["frames"],
-               img=shape["img"], group_ms=groups)
+               img=shape["img"], group_ms=groups, port_launches=launches)
     print(json.dumps(row), flush=True)
     print(json.dumps(_parts(state, batch, shape)), flush=True)
     return 0

@@ -339,3 +339,78 @@ def test_blip_vision_tower_backward_reaches_every_layer(cuda):
         assert kp <= 5e-2 or (pf > 5e-2 and rel(g, oracle[name]) <= 2 * pf), \
             (name, kp, pf, rel(g, oracle[name]))
 
+
+
+# ---- K3: the split git-flash backward ---------------------------------------
+
+SPLIT_SHAPES = [(2, 3, 65, 3), (2, 2, 591, 13)]   # (B, H, num_img, L)
+
+
+def _split_inputs(cuda, b, h, num_img, l, rate):
+    from sasvqa_torch.ops import git_flash as gf
+    _, q, k, v = _qkv(cuda, b, h, num_img, l, seed=num_img + 1)
+    mask = _mask(b, l, l + 1).to(cuda)
+    seed = torch.tensor([987 + l], dtype=torch.int32, device=cuda)
+    o, lse = git_flash_attention(q, k, v, mask, num_img, rate, seed)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    do = torch.randn(q.shape, generator=gen, device=cuda).to(q.dtype)
+    return gf, (q, k, v, o, lse, do, mask, num_img, rate, seed)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("b,h,num_img,l", SPLIT_SHAPES)
+def test_split_backward_matches_plain_and_fused(cuda, b, h, num_img, l,
+                                                rate):
+    """K3 against its plain version (split numerics) and against K2, with
+    dQ bit-identical across two launches; each kernel counts one launch
+    and, at rate > 0, one dropout-hash launch (as K2 does)."""
+    gf, args = _split_inputs(cuda, b, h, num_img, l, rate)
+    _build.reset_launch_counts()
+    got = gf._launch_bwd_split(*args)
+    again = gf._launch_bwd_split(*args)
+    fused = gf._launch_bwd(*args)
+    ref = gf.git_flash_backward_split_reference(*args)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["git_flash_bwd_dq"] == 2
+    assert _build.launch_counts["git_flash_bwd_dkv"] == 2
+    # two K3 backwards of two kernels each, and one K2
+    assert _build.launch_counts["hash_dropout"] == (5 if rate else 0)
+    assert torch.equal(got[0], again[0])
+    for name, g, f, r in zip("qkv", got, fused, ref):
+        assert g.shape == r.shape and torch.isfinite(g.float()).all(), name
+        scale = max(r.float().abs().max().item(), 1e-6)
+        assert (g.float() - r.float()).abs().max().item() \
+            <= TOL_GRAD_REL * scale, name
+        assert (g.float() - f.float()).abs().max().item() \
+            <= TOL_GRAD_REL * scale, name
+
+
+def test_split_backward_rejects_what_it_cannot_take(cuda):
+    gf, args = _split_inputs(cuda, 1, 2, 65, 3, 0.0)
+    q, k, v, o, lse, do, mask, num_img, rate, seed = args
+    with pytest.raises(ValueError, match="bf16"):
+        gf._launch_bwd_split(q.float(), k, v, o, lse, do, mask, num_img)
+    with pytest.raises(ValueError, match="LSE"):
+        gf._launch_bwd_split(q, k, v, o, lse.half(), do, mask, num_img)
+    with pytest.raises(ValueError, match="does not fit"):
+        gf._launch_bwd_split(q, k, v, o, lse, do, mask, num_img - 1)
+    with pytest.raises(ValueError, match="GPU"):
+        gf._launch_bwd_split(q, k, v, o, lse, do, mask.cpu(), num_img)
+
+
+def test_route_flag_sends_the_backward_through_k3(cuda, monkeypatch):
+    """FUSED_BWD=False routes every CUDA backward to K3, True with no
+    crossover below S to K2; the autograd backward follows the route."""
+    gf, args = _split_inputs(cuda, 2, 2, 130, 6, 0.1)
+    q, k, v, o, lse, do, mask, num_img, rate, seed = args
+    for flag, name in ((False, "git_flash_bwd_dq"), (True, "git_flash_bwd")):
+        monkeypatch.setattr(gf, "FUSED_BWD", flag)
+        if flag:
+            monkeypatch.setattr(gf, "_SPLIT_MIN_SEQ_DROPOUT", None)
+        xs = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+        _build.reset_launch_counts()
+        out, _ = git_flash_attention(*xs, mask, num_img, rate, seed)
+        out.backward(do)
+        torch.cuda.synchronize()
+        assert _build.launch_counts[name] == 1, _build.launch_counts
+        assert all(x.grad is not None for x in xs)

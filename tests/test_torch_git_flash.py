@@ -255,3 +255,71 @@ def test_cpu_backward_counts_nothing_and_leaves_lse_undifferentiable():
     out.sum().backward()
     assert all(x.grad is not None for x in xs)
     assert not any(_build.launch_counts.values())
+
+
+# ---- K3: the split backward and the backward route --------------------------
+
+@pytest.mark.parametrize("rate", [0.0, 0.25])
+def test_split_backward_matches_jax_split_kernels(rate, monkeypatch):
+    """FUSED_BWD=False in both packages: the port's split plain backward
+    against the JAX _dq_kernel/_dkv_kernel in interpret mode, with
+    num_img = 200 off the 128-block grid (a key block and a query block
+    that straddle the image/text boundary) and text padding."""
+    from sasvqa_torch.ops import git_flash as tgf
+    monkeypatch.setattr(jgf, "FUSED_BWD", False)
+    monkeypatch.setattr(tgf, "FUSED_BWD", False)
+    num_img, l = 200, 24
+    q, k, v, mask = _inputs(num_img, l, seed=9)
+    do = np.random.default_rng(10).normal(size=q.shape).astype(np.float32)
+    seed = 4321
+
+    def jfn(q, k, v):
+        return jgf.git_flash_attention(q, k, v, jnp.asarray(mask), num_img,
+                                       128, 128, dropout_rate=rate,
+                                       dropout_seed=jnp.int32(seed))
+
+    jout, vjp = jax.vjp(jfn, *(jnp.asarray(x) for x in (q, k, v)))
+    jgrads = vjp(jnp.asarray(do))
+    xs = [to_torch(x).requires_grad_(True) for x in (q, k, v)]
+    out, _ = git_flash_attention(*xs, to_torch(mask), num_img, rate=rate,
+                                 seed=seed if rate else None)
+    out.backward(to_torch(do))
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(jout),
+                               atol=ATOL, rtol=RTOL)
+    for x, jg in zip(xs, jgrads):
+        np.testing.assert_allclose(x.grad.numpy(), np.asarray(jg),
+                                   atol=GRAD_ATOL, rtol=GRAD_RTOL)
+
+
+@pytest.mark.parametrize("flag,cross,cross_drop,rate,split", [
+    (False, None, None, 0.0, True),       # the flag: K3 everywhere
+    (False, None, None, 0.3, True),
+    (True, None, None, 0.0, False),       # no crossover: K2 everywhere
+    (True, None, None, 0.3, False),
+    (True, 100, None, 0.0, True),         # S = 120 at or past the crossover
+    (True, 100, None, 0.3, False),        # the rate picks its own constant
+    (True, None, 121, 0.3, False),        # S = 120 below it
+    (True, None, 120, 0.3, True),
+])
+def test_backward_route_follows_flag_and_crossover(monkeypatch, flag, cross,
+                                                   cross_drop, rate, split):
+    """On CPU tensors the route picks the plain version of the kernel it
+    would launch on the card: the split one (K3) or the fused one (K2)."""
+    from sasvqa_torch.ops import git_flash as tgf
+    monkeypatch.setattr(tgf, "FUSED_BWD", flag)
+    monkeypatch.setattr(tgf, "_SPLIT_MIN_SEQ", cross)
+    monkeypatch.setattr(tgf, "_SPLIT_MIN_SEQ_DROPOUT", cross_drop)
+    called = []
+    for name in ("git_flash_backward_reference",
+                 "git_flash_backward_split_reference"):
+        real = getattr(tgf, name)
+        monkeypatch.setattr(tgf, name, lambda *a, _r=real, _n=name: (
+            called.append(_n), _r(*a))[1])
+    q, k, v, mask = _inputs(100, 20, seed=2)
+    assert tgf._fused_eligible(120, rate) is (not split)
+    xs = [to_torch(x).requires_grad_(True) for x in (q, k, v)]
+    out, _ = git_flash_attention(*xs, to_torch(mask), 100, rate=rate,
+                                 seed=5 if rate else None)
+    out.sum().backward()
+    assert called == ["git_flash_backward_split_reference" if split
+                      else "git_flash_backward_reference"]
