@@ -165,6 +165,21 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, reps: int, kernel: str = "flash_fwd_sm90") -> float:
+    """Mean device time per call of ``fn`` of the CUDA kernels whose name
+    holds ``kernel``, from ``torch.profiler``: the kernel's own time, which
+    ``cuda_ms`` exceeds when the launcher's host time does."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.device_time_total for e in prof.key_averages()
+               if kernel in e.key) / reps / 1e3
+
+
 def roofline(ops, nbytes, peak=PEAK_BF16_FLOPS):
     """(bound_ms, bound_by): the larger of ops at ``peak`` and bytes at
     the memory rate."""
@@ -172,6 +187,20 @@ def roofline(ops, nbytes, peak=PEAK_BF16_FLOPS):
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     return (max(t_ops, t_bytes),
             "operations" if t_ops >= t_bytes else "bytes")
+
+
+def rates(flop, bound_ms, ms):
+    """Achieved TFLOP/s (the work the inputs need, over the kernel's
+    time) and the share of the bound reached (bound_ms / kernel ms)."""
+    return {"tflops": flop / ms / 1e9, "bound_share": bound_ms / ms}
+
+
+def k1_tiles(num_img, s):
+    """K1's key tiles a (b, h) visits and those that run mask code
+    (``fwd_tile_plan``)."""
+    plan = gf.fwd_tile_plan(num_img, s)
+    return {"visited": sum(len(t) for t in plan.values()),
+            "masked": sum(m for t in plan.values() for _, m in t)}
 
 
 def attended_pairs(num_img, text_mask, h):
@@ -230,7 +259,7 @@ def phase_build():
     t0 = time.perf_counter()
     seconds = _build.build_all()
     ptxas = {name: [ln.strip() for ln in log.splitlines()
-                    if "registers" in ln or "spill" in ln]
+                    if "registers" in ln or "spill" in ln or "C75" in ln]
              for name, log in _build.build_logs.items()}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "per_kernel_s": seconds, "ptxas": ptxas})
@@ -268,6 +297,8 @@ def phase_kernel(shapes):
         ok_mask = git_mask_ok(num_img, mask)[:, None]
         kernel_ms = cuda_ms(
             lambda: git_flash_attention(q, k, v, mask, num_img), reps=20)
+        dev_ms = device_ms(
+            lambda: git_flash_attention(q, k, v, mask, num_img), reps=20)
         plain_ms = cuda_ms(
             lambda: git_flash_attention_reference(q, k, v, mask, num_img),
             reps=5)
@@ -281,10 +312,12 @@ def phase_kernel(shapes):
                          "num_img": num_img, "L": l, "Dh": dh},
                "max_abs_err_o": err_o, "max_abs_err_lse": err_lse,
                "tol_o": TOL_O, "tol_lse": TOL_LSE, "kernel_ms": kernel_ms,
-               "plain_ms": plain_ms, "library_ms": library_ms,
+               "device_ms": dev_ms, "plain_ms": plain_ms,
+               "library_ms": library_ms,
                "bound_ms": bound_ms, "bound_by": bound_by,
                "attended_pairs": pairs,
-               "tflops": 4 * dh * pairs / kernel_ms / 1e9}
+               "tiles": k1_tiles(num_img, num_img + l),
+               **rates(4 * dh * pairs, bound_ms, kernel_ms)}
         emit(row)
         check(err_o <= TOL_O and err_lse <= TOL_LSE,
               f"git_flash_fwd disagrees with its plain version: {row}")
@@ -333,6 +366,10 @@ def phase_train_kernels(shapes, rate):
                    q, k, v, mask, num_img, rate, seed), reps=10),
                "kernel_ms_rate0": cuda_ms(lambda: git_flash_attention(
                    q, k, v, mask, num_img), reps=10),
+               "device_ms": device_ms(lambda: git_flash_attention(
+                   q, k, v, mask, num_img, rate, seed), reps=10),
+               "device_ms_rate0": device_ms(lambda: git_flash_attention(
+                   q, k, v, mask, num_img), reps=10),
                "plain_ms": cuda_ms(lambda: git_flash_attention_reference(
                    q, k, v, mask, num_img, rate, seed), reps=2, warmup=1),
                "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
@@ -341,6 +378,10 @@ def phase_train_kernels(shapes, rate):
                "attended_pairs": pairs}
         fwd["bound_ms"], fwd["bound_by"], _ = git_flash_bound(num_img, mask,
                                                               h, dh)
+        fwd.update(rates(4 * dh * pairs, fwd["bound_ms"], fwd["kernel_ms"]))
+        fwd["rate0"] = rates(4 * dh * pairs, fwd["bound_ms"],
+                             fwd["kernel_ms_rate0"])
+        fwd["tiles"] = k1_tiles(num_img, num_img + l)
         emit(fwd)
         check(err_o <= TOL_O and err_lse <= TOL_LSE,
               f"git_flash_fwd with dropout disagrees with its plain "
@@ -463,12 +504,16 @@ def phase_flash_kernels(cases):
                "tol_lse": TOL_LSE,
                "kernel_ms": cuda_ms(lambda: flash_forward(q, k, v, bias),
                                     reps=20),
+               "device_ms": device_ms(lambda: flash_forward(q, k, v, bias),
+                                      reps=20),
                "plain_ms": cuda_ms(lambda: flash_attention_reference(
                    q, k, v, bias), reps=3, warmup=1),
                "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
                    q, k, v, attn_mask=lib_mask), reps=20),
                "library": "SDPA",
                "bound_ms": bounds["fwd"][0], "bound_by": bounds["fwd"][1]}
+        fwd.update(rates(4 * 64 * b * h * lq * lk, fwd["bound_ms"],
+                         fwd["kernel_ms"]))
         emit(fwd)
         check(err_o <= TOL_O and err_lse <= TOL_LSE,
               f"flash_fwd disagrees with its plain version: {fwd}")
@@ -1727,10 +1772,16 @@ def main() -> int:
         "bound_ms": fwd["bound_ms"], "bound_by": fwd["bound_by"],
         "library_ms": fwd["library_ms"],
         "at": f"training shape, rate {rate}",
-        "ms_rate0": fwd["kernel_ms_rate0"],
-        "serving": {"ms": serve["kernel_ms"], "plain_ms": serve["plain_ms"],
+        "tflops": fwd["tflops"], "bound_share": fwd["bound_share"],
+        "device_ms": fwd["device_ms"],
+        "ms_rate0": fwd["kernel_ms_rate0"], "rate0": fwd["rate0"],
+        "device_ms_rate0": fwd["device_ms_rate0"],
+        "serving": {"ms": serve["kernel_ms"], "device_ms": serve["device_ms"],
+                    "plain_ms": serve["plain_ms"],
                     "bound_ms": serve["bound_ms"],
-                    "library_ms": serve["library_ms"]},
+                    "library_ms": serve["library_ms"],
+                    "tflops": serve["tflops"],
+                    "bound_share": serve["bound_share"]},
         "ragged_ms": ragged["fwd"]["kernel_ms"],
         "kernel_share_of_prompt_fill": (
             slice_row["launches"]["git_flash_fwd"] / slice_row["batches"]
@@ -1773,8 +1824,11 @@ def main() -> int:
         "bound_ms": k5_serve["bound_ms"], "bound_by": k5_serve["bound_by"],
         "library_ms": k5_serve["library_ms"],
         "at": "BLIP-base serving shape (64, 12, 577, 64), no bias",
+        "tflops": k5_serve["tflops"], "bound_share": k5_serve["bound_share"],
+        "device_ms": k5_serve["device_ms"],
         "training": {key: k5_train[key] for key in
-                     ("kernel_ms", "plain_ms", "bound_ms", "library_ms")},
+                     ("kernel_ms", "device_ms", "plain_ms", "bound_ms",
+                      "library_ms", "tflops", "bound_share")},
         "kernel_share_of_serving_forward": (
             blip_serve_row["launches"]["flash_fwd"]
             / blip_serve_row["batches"] * k5_serve["kernel_ms"]

@@ -164,7 +164,8 @@ def raise_on_error(name: str, err: int) -> None:
         fn = load(name).kernel_error_string
         fn.restype = ctypes.c_char_p
         fn.argtypes = [ctypes.c_int]
-        raise RuntimeError(f"{name} launch failed: " + fn(err).decode())
+        raise RuntimeError(f"{name} launch failed (code {err}): "
+                           + fn(err).decode())
 
 
 def kernel_ready(x):
@@ -173,3 +174,12 @@ def kernel_ready(x):
     aligned = (x.stride(-1) == 1 and x.data_ptr() % 16 == 0
                and all(st % 8 == 0 for st in x.stride()[:-1]))
     return x if aligned else x.contiguous()
+
+
+def tma_ready(x):
+    """:func:`kernel_ready`, and a copy where an axis of extent > 1 has
+    stride 0 (an expanded view): a TMA tensor map takes no zero stride."""
+    x = kernel_ready(x)
+    if any(st == 0 and n > 1 for st, n in zip(x.stride(), x.shape)):
+        return x.contiguous()
+    return x

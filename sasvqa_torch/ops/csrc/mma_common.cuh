@@ -110,6 +110,13 @@ rowsum_product_kernel(const __nv_bfloat16* __restrict__ o,
 
 }  // namespace
 
+// a launcher's nonzero return code: a cudaError_t, or the tensor-map
+// codes of flash_fwd_sm90.cuh (10000 + CUresult, 20000)
 extern "C" const char* kernel_error_string(int code) {
+  if (code >= 20000) return "cuTensorMapEncodeTiled: no driver entry point";
+  if (code >= 10000) {
+    return "cuTensorMapEncodeTiled refused the tensor map (code - 10000 is "
+           "the CUresult)";
+  }
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

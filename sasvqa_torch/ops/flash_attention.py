@@ -159,7 +159,7 @@ def _launch_fwd(q, k, v, bias):
     _check(q, k, v)
     b, h, lq, dh = q.shape
     lk = k.shape[2]
-    q, k, v = (_build.kernel_ready(x) for x in (q, k, v))
+    q, k, v = (_build.tma_ready(x) for x in (q, k, v))
     bias_f, bias_strides = _bias_args(bias, q, lk)
     # O is written as (B, Lq, H, Dh) so that merge_heads is a free reshape
     out = torch.empty((b, lq, h, dh), dtype=q.dtype,

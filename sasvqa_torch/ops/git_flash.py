@@ -30,7 +30,7 @@ LSE in f32 (B, H, S); LSE is not differentiable.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple, Union
+from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -249,6 +249,29 @@ def git_flash_backward_split_reference(q: torch.Tensor, k: torch.Tensor,
 
 # ---- the CUDA kernels ------------------------------------------------------
 
+# K1's tile: query rows a CTA and keys a tile (FWD_BM, FWD_BN in
+# csrc/flash_fwd_sm90.cuh)
+FWD_BLOCK_M, FWD_BLOCK_N = 64, 64
+
+
+def fwd_tile_plan(num_img: int, s: int, block_m: int = FWD_BLOCK_M,
+                  block_n: int = FWD_BLOCK_N
+                  ) -> Dict[int, List[Tuple[int, bool]]]:
+    """K1's visit-and-skip rule, as ``csrc/flash_fwd_sm90.cuh`` applies
+    it: query tile start q0 -> the key tiles it visits, as (k0, masked).
+    A query tile visits the key tiles below kv_end = min(S, max(num_img,
+    q0 + block_m)), past which none of its rows attends a column; a key
+    tile wholly below num_img (k0 + block_n <= num_img) is attendable from
+    every row and runs no mask code (the TPU kernel's unmasked prefix,
+    ``_n_unmasked_blocks``)."""
+    plan = {}
+    for q0 in range(0, s, block_m):
+        kv_end = min(s, max(num_img, q0 + block_m))
+        plan[q0] = [(k0, k0 + block_n > num_img)
+                    for k0 in range(0, kv_end, block_n)]
+    return plan
+
+
 def _kernel_fn(name: str):
     fn = _fns.get(name)
     if fn is None:
@@ -303,7 +326,7 @@ def _launch(q, k, v, attention_mask, num_img, rate=0.0, seed=None):
     """K1 (with K4 inside when ``rate`` > 0) on CUDA tensors."""
     _check(attention_mask, num_img, q, k, v)
     b, h, s, dh = q.shape
-    q, k, v = (_build.kernel_ready(x) for x in (q, k, v))
+    q, k, v = (_build.tma_ready(x) for x in (q, k, v))
     text_mask = attention_mask.to(torch.int32).contiguous()
     seed_t = _seed_tensor(seed, q.device)
     thresh, inv_keep = _dropout_consts(rate)

@@ -414,3 +414,93 @@ def test_route_flag_sends_the_backward_through_k3(cuda, monkeypatch):
         torch.cuda.synchronize()
         assert _build.launch_counts[name] == 1, _build.launch_counts
         assert all(x.grad is not None for x in xs)
+
+
+# ---- K1 / K5 on the Hopper tiling (64-row query tiles, 64-key tiles) -------
+
+TILING_FLASH_SHAPES = [  # (B, H, Lq, Lk, bias): ragged edges of both tiles
+    (2, 2, 577, 577, None),      # the last key tile holds one key
+    (1, 2, 577, 577, "causal"),  # (1, 1, L, L)
+    (2, 2, 129, 300, "row"),     # Lq < Lk, (B, 1, 1, Lk)
+    (1, 3, 300, 129, "full"),    # Lq > Lk, (B, 1, Lq, Lk)
+    (2, 2, 65, 200, "heads"),    # (1, H, Lq, Lk)
+    (1, 2, 64, 128, None),       # whole tiles only
+    (1, 1, 1, 1, None),          # one row, one key
+]
+
+
+def _split_head_qkv(cuda, b, h, lq, lk, seed):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    xq = torch.randn((b, lq, h * 64), generator=gen, device=cuda
+                     ).to(torch.bfloat16)
+    xkv = torch.randn((b, lk, 2 * h * 64), generator=gen, device=cuda
+                      ).to(torch.bfloat16)
+    k, v = (split_heads(x, h) for x in xkv.chunk(2, dim=-1))
+    return split_heads(xq, h), k, v
+
+
+@pytest.mark.parametrize("b,h,lq,lk,kind", TILING_FLASH_SHAPES)
+def test_k5_tiling_edges_match_plain(cuda, b, h, lq, lk, kind):
+    """K5 (wgmma/TMA) on split-head (B, L, H, Dh) views at every ragged
+    edge of its tiles, one launch, within the chip_smoke.py tolerances."""
+    from sasvqa_torch.ops.flash_attention import flash_forward
+    q, k, v = _split_head_qkv(cuda, b, h, lq, lk, seed=lq * 1000 + lk)
+    bias = _flash_bias(kind, b, h, lq, lk, cuda, lk)
+    _build.reset_launch_counts()
+    out, lse = flash_forward(q, k, v, bias)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["flash_fwd"] == 1
+    ref_o, ref_lse = flash_attention_reference(q, k, v, bias)
+    assert out.shape == (b, h, lq, 64) and lse.shape == (b, h, lq)
+    assert (out.float() - ref_o.float()).abs().max().item() <= TOL_O
+    assert (lse - ref_lse).abs().max().item() <= TOL_LSE
+
+
+def test_k5_row_with_every_key_masked_gives_zeros(cuda):
+    """A query row whose bias is -inf at every key: O is 0 and LSE is
+    -inf, as in the plain version; the other rows are unaffected."""
+    from sasvqa_torch.ops.flash_attention import flash_forward
+    b, h, lq, lk = 2, 2, 200, 300
+    q, k, v = _split_head_qkv(cuda, b, h, lq, lk, seed=5)
+    bias = torch.zeros((b, 1, lq, lk), device=cuda)
+    bias[:, :, 70] = float("-inf")
+    bias[1, :, 199] = float("-inf")
+    _build.reset_launch_counts()
+    out, lse = flash_forward(q, k, v, bias)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["flash_fwd"] == 1
+    ref_o, ref_lse = flash_attention_reference(q, k, v, bias)
+    assert out[:, :, 70].abs().max().item() == 0.0
+    assert out[1, :, 199].abs().max().item() == 0.0
+    assert torch.isneginf(lse[:, :, 70]).all()
+    assert torch.equal(torch.isneginf(lse), torch.isneginf(ref_lse))
+    assert (out.float() - ref_o.float()).abs().max().item() <= TOL_O
+    fin = torch.isfinite(ref_lse)
+    assert (lse[fin] - ref_lse[fin]).abs().max().item() <= TOL_LSE
+
+
+TILING_GIT_SHAPES = [  # (B, H, num_img, L, rate): num_img about a boundary
+    (2, 2, 127, 2, 0.0), (2, 2, 128, 5, 0.0), (1, 3, 129, 70, 0.0),
+    (2, 2, 255, 3, 0.1), (1, 2, 256, 1, 0.1), (2, 2, 1, 200, 0.0),
+    (2, 2, 564, 13, 0.1), (1, 2, 640, 64, 0.0)]
+
+
+@pytest.mark.parametrize("b,h,num_img,l,rate", TILING_GIT_SHAPES)
+def test_k1_tiling_edges_match_plain(cuda, b, h, num_img, l, rate):
+    """K1 (wgmma/TMA) on split-head views with num_img on either side of
+    a key tile boundary (the unmasked image prefix) and of a query
+    tile, text-heavy sequences, and rate 0.1 with a tensor seed:
+    one launch, within the chip_smoke.py tolerances."""
+    _, q, k, v = _qkv(cuda, b, h, num_img, l, seed=num_img + l)
+    mask = _mask(b, l, num_img + 7).to(cuda)
+    seed = torch.tensor([-(2 ** 31) + 3 * num_img], dtype=torch.int32,
+                        device=cuda)
+    _build.reset_launch_counts()
+    out, lse = git_flash_attention(q, k, v, mask, num_img, rate, seed)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["git_flash_fwd"] == 1
+    assert _build.launch_counts["hash_dropout"] == (1 if rate else 0)
+    ref_o, ref_lse = git_flash_attention_reference(q, k, v, mask, num_img,
+                                                   rate, seed)
+    assert (out.float() - ref_o.float()).abs().max().item() <= TOL_O
+    assert (lse - ref_lse).abs().max().item() <= TOL_LSE

@@ -323,3 +323,39 @@ def test_backward_route_follows_flag_and_crossover(monkeypatch, flag, cross,
     out.sum().backward()
     assert called == ["git_flash_backward_split_reference" if split
                       else "git_flash_backward_reference"]
+
+
+# (num_img, L, block_m, block_n): K1's tiles, the serving and training
+# shapes, and num_img on either side of a key-tile boundary
+@pytest.mark.parametrize("num_img,l,bm,bn", [
+    (1576, 32, 64, 64), (1576, 20, 64, 128), (128, 5, 64, 64),
+    (129, 40, 64, 128), (127, 70, 64, 128), (1, 5, 64, 128),
+    (200, 100, 32, 64), (64, 130, 64, 32)])
+def test_k1_tile_plan_covers_every_attended_pair(num_img, l, bm, bn):
+    """Every attended (row, col) lies in a key tile its query tile
+    visits, and every key tile that skips the mask code is attendable
+    from every row of its query tile (``git_mask_ok``)."""
+    from sasvqa_torch.ops.git_flash import fwd_tile_plan, git_mask_ok
+    s = num_img + l
+    rng = np.random.default_rng(num_img + l)
+    lens = rng.integers(1, l + 1, size=3)
+    lens[0] = l
+    mask = torch.from_numpy(
+        (np.arange(l)[None, :] < lens[:, None]).astype(np.int32))
+    ok = git_mask_ok(num_img, mask).numpy()             # (B, S, S)
+    plan = fwd_tile_plan(num_img, s, bm, bn)
+    assert sorted(plan) == list(range(0, s, bm))
+    visited = np.zeros((s, s), bool)
+    for q0, tiles in plan.items():
+        rows = slice(q0, min(q0 + bm, s))
+        for k0, masked in tiles:
+            assert k0 < s and k0 % bn == 0
+            visited[rows, k0:k0 + bn] = True
+            if not masked:
+                assert ok[:, rows, k0:k0 + bn].all(), (q0, k0)
+    assert not (ok & ~visited[None]).any()
+    # the training shape's unmasked image prefix: 24 of the 25 key tiles
+    # an image-row query tile visits
+    if (num_img, l, bm, bn) == (1576, 32, 64, 64):
+        assert [m for _, m in plan[0]] == [False] * 24 + [True]
+        assert plan == fwd_tile_plan(num_img, s)   # K1's own tiles
