@@ -15,15 +15,22 @@ its kernels:
   bench's flagship shape (B=16, 8 frames, S=1608, dropout on);
 - BLIP-base classifier serving through ``QAEngine(family="blip")``
   (batch 16, 4 frames of 384x384, 577 tokens a frame), a check of the
-  BLIP kernel route's gradients against the plain route's, and BLIP-base
-  training with ``make_scan_train_step(family="classifier")`` (4 micros
-  of 8 questions, adam);
+  BLIP kernel route's gradients against the plain route's at three seeds,
+  and BLIP-base training with ``make_scan_train_step(family="classifier")``
+  (4 micros of 8 questions, adam);
 - GIT with the ViT-L/14 tower at 16 frames (S = 4144, remat, dropout
   0.1/0.1): K3 (the split backward) against its plain version and K2 over
-  S = 604..4144 at rates 0 and 0.1, a gradient check of the K3 route
-  against the K2 route and of remat on against off, and the task loop
-  itself, ``start_training`` from a config file (4 updates, validation,
-  snapshots, frames from an in-memory store).
+  S = 604..4144 at rates 0 and 0.1 (the crossover that routes the GIT
+  backward), a gradient check of the K3 route against the K2 route and of
+  remat on against off, and the task loop itself, ``start_training`` from
+  a config file (4 updates, validation, snapshots, frames from an
+  in-memory store).
+
+Every kernel row carries the kernel's device time from ``torch.profiler``
+beside CUDA events round its Python call (the backward rows: every
+kernel the launcher runs), and SDPA's time on the same inputs by device
+time (the backwards: fwd+bwd window minus fwd window) with the kernels
+it ran.
 
 Each phase prints one JSON line; the line before the last lists the
 kernels, the last is ``{"ok": true, "device": {...}}``.  Exits non-zero,
@@ -35,6 +42,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -64,6 +72,7 @@ from sasvqa_torch.ops.git_flash import (git_flash_attention,
                                         git_mask_ok, hash_dropout_factor)
 from sasvqa_torch.tasks import run_video_qa
 from sasvqa_torch.tasks.serve import QAEngine
+from sasvqa_torch.tools.bwd_yardstick import device_window, sdpa_backward
 from sasvqa_torch.train import steps as train_steps
 from sasvqa_torch.train.steps import create_train_state, make_scan_train_step
 
@@ -135,6 +144,10 @@ BLIP_TRAIN = dict(batch_size=8, k_micro=4, warmup_updates=1,
                          "betas": [0.9, 0.999], "grad_norm": 5.0,
                          "decay": "constant"})
 BLIP_GRAD_CHECK_ROWS = 4
+# the BLIP gradient gate sits at bf16's noise floor (PERF.md): a change of
+# where P or dS round draws a new sample of it, so the check runs at these
+# seeds too (weights, batch and dropout draws), each under the same gate
+BLIP_GRAD_EXTRA_SEEDS = (1, 2)
 # K5/K6 vs their plain versions: TOL_O/TOL_LSE and TOL_GRAD_REL above.  K5
 # rounds P to bf16 for P.V where the plain version keeps f32, O is bf16;
 # K6 rounds P and dS to bf16 before the products (f32 in the plain
@@ -167,17 +180,11 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
 
 def device_ms(fn, reps: int, kernel: str = "flash_fwd_sm90") -> float:
     """Mean device time per call of ``fn`` of the CUDA kernels whose name
-    holds ``kernel``, from ``torch.profiler``: the kernel's own time, which
-    ``cuda_ms`` exceeds when the launcher's host time does."""
-    fn()
-    torch.cuda.synchronize()
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.device_time_total for e in prof.key_averages()
-               if kernel in e.key) / reps / 1e3
+    holds ``kernel``, from ``torch.profiler`` (``device_window``): the
+    kernel's own time, which ``cuda_ms`` exceeds when the launcher's host
+    time does."""
+    _, names = device_window(fn, reps)
+    return sum(ms for name, ms in names.items() if kernel in name)
 
 
 def roofline(ops, nbytes, peak=PEAK_BF16_FLOPS):
@@ -193,6 +200,31 @@ def rates(flop, bound_ms, ms):
     """Achieved TFLOP/s (the work the inputs need, over the kernel's
     time) and the share of the bound reached (bound_ms / kernel ms)."""
     return {"tflops": flop / ms / 1e9, "bound_share": bound_ms / ms}
+
+
+def sdpa_yardstick(row, q, k, v, do, mask, reps):
+    """Adds to a backward row SDPA's backward on the same inputs: the
+    device time of its fwd+bwd window minus its fwd window (every kernel,
+    no selection by name), the same by CUDA events, the kernels each
+    window ran (which name the backend), and the row's device-time factor
+    (kernel / SDPA backward)."""
+    sd = sdpa_backward(q, k, v, do, mask, reps)
+    row.update(library_ms=sd["device_ms"], library_events_ms=sd["events_ms"],
+               library_kernels={"fwd_bwd": sd["fwd_bwd_kernels"],
+                                "fwd": sd["fwd_kernels"]},
+               library="SDPA: device time of fwd+bwd minus fwd",
+               factor=row["device_ms"] / sd["device_ms"])
+
+
+def sdpa_forward(q, k, v, mask, reps):
+    """SDPA's forward on a forward row's inputs: the device time of every
+    kernel it runs, the same by CUDA events, and its kernels."""
+    def fn():
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+
+    dev, names = device_window(fn, reps)
+    return {"library_ms": dev, "library_events_ms": cuda_ms(fn, reps),
+            "library_kernels": names}
 
 
 def k1_tiles(num_img, s):
@@ -255,14 +287,50 @@ def phase_device():
     return smi
 
 
+_PTXAS_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+_PTXAS_REGS = re.compile(r"Used (\d+) registers")
+
+
+def _kernel_name(mangled):
+    """``name<template args>`` of a kernel from its mangled name."""
+    for m in re.finditer(r"\d+", mangled):
+        end = m.end() + int(m.group())
+        name = mangled[m.end():end]
+        if name.endswith("_kernel") and re.fullmatch(r"[A-Za-z_]\w*", name):
+            rest = mangled[end:]
+            args = (re.findall(r"L[ib](\d+)E", rest[:rest.find("EEv") + 1])
+                    if rest.startswith("I") else [])
+            return name + (f"<{','.join(args)}>" if args else "")
+    return mangled
+
+
+def ptxas_summary(log):
+    """{kernel<template args>: {registers, spill_stores, spill_loads}}
+    from nvcc's -Xptxas -v output for one library."""
+    out, fn = {}, None
+    for ln in log.splitlines():
+        if "Function properties for " in ln:
+            fn = _kernel_name(ln.split("Function properties for ")[1].strip())
+            out[fn] = {}
+        elif fn and _PTXAS_SPILL.search(ln):
+            st, ld = _PTXAS_SPILL.search(ln).groups()
+            out[fn].update(spill_stores=int(st), spill_loads=int(ld))
+        elif fn and _PTXAS_REGS.search(ln):
+            out[fn]["registers"] = int(_PTXAS_REGS.search(ln).group(1))
+    return out
+
+
 def phase_build():
     t0 = time.perf_counter()
     seconds = _build.build_all()
-    ptxas = {name: [ln.strip() for ln in log.splitlines()
-                    if "registers" in ln or "spill" in ln or "C75" in ln]
+    notes = {name: sorted({ln.strip().split(")")[0].split("(")[-1]
+                           for ln in log.splitlines() if "(C75" in ln})
+             for name, log in _build.build_logs.items()}
+    ptxas = {name: ptxas_summary(log)
              for name, log in _build.build_logs.items()}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "per_kernel_s": seconds, "ptxas": ptxas})
+          "per_kernel_s": seconds, "ptxas": ptxas, "ptxas_notes": notes})
+    return ptxas
 
 
 def _kernel_inputs(b, h, num_img, l, dh, seed):
@@ -302,18 +370,14 @@ def phase_kernel(shapes):
         plain_ms = cuda_ms(
             lambda: git_flash_attention_reference(q, k, v, mask, num_img),
             reps=5)
-        library_ms = cuda_ms(
-            lambda: F.scaled_dot_product_attention(q, k, v,
-                                                   attn_mask=ok_mask),
-            reps=20)
+        library = sdpa_forward(q, k, v, ok_mask, reps=20)
         bound_ms, bound_by, pairs = git_flash_bound(num_img, mask, h, dh)
         row = {"phase": "kernel", "name": "git_flash_fwd",
                "shape": {"B": b, "H": h, "S": num_img + l,
                          "num_img": num_img, "L": l, "Dh": dh},
                "max_abs_err_o": err_o, "max_abs_err_lse": err_lse,
                "tol_o": TOL_O, "tol_lse": TOL_LSE, "kernel_ms": kernel_ms,
-               "device_ms": dev_ms, "plain_ms": plain_ms,
-               "library_ms": library_ms,
+               "device_ms": dev_ms, "plain_ms": plain_ms, **library,
                "bound_ms": bound_ms, "bound_by": bound_by,
                "attended_pairs": pairs,
                "tiles": k1_tiles(num_img, num_img + l),
@@ -372,8 +436,7 @@ def phase_train_kernels(shapes, rate):
                    q, k, v, mask, num_img), reps=10),
                "plain_ms": cuda_ms(lambda: git_flash_attention_reference(
                    q, k, v, mask, num_img, rate, seed), reps=2, warmup=1),
-               "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
-                   q, k, v, attn_mask=ok_mask), reps=10),
+               **sdpa_forward(q, k, v, ok_mask, reps=10),
                "library": "SDPA, boolean mask, no dropout",
                "attended_pairs": pairs}
         fwd["bound_ms"], fwd["bound_by"], _ = git_flash_bound(num_img, mask,
@@ -408,22 +471,15 @@ def phase_train_kernels(shapes, rate):
                        lambda: git_flash_backward_reference(*args), reps=2,
                        warmup=1),
                    "attended_pairs": pairs}
+            # every kernel the launcher runs: the f32 dQ buffer's fill, the
+            # backward (D inside), the cast of dQ
+            bwd["device_ms"], bwd["device_kernels"] = device_window(
+                lambda: gf._launch_bwd(*args), reps=10)
             bwd["bound_ms"], bwd["bound_by"] = git_flash_bwd_bound(
                 num_img, mask, h, dh)
             if r == 0.0:
-                # SDPA forward + backward minus forward, at rate 0: SDPA's
-                # dropout draws a mask of its own
-                ql, kl, vl = (x.detach().clone().requires_grad_(True)
-                              for x in (q, k, v))
-
-                def sdpa():
-                    return F.scaled_dot_product_attention(
-                        ql, kl, vl, attn_mask=ok_mask)
-
-                both = cuda_ms(lambda: sdpa().backward(do), reps=10)
-                bwd["library_ms"] = both - cuda_ms(sdpa, reps=10)
-                bwd["library"] = "SDPA, boolean mask: fwd+bwd minus fwd"
-                del ql, kl, vl
+                # at rate 0: SDPA's dropout draws a mask of its own
+                sdpa_yardstick(bwd, q, k, v, do, ok_mask, reps=10)
             else:
                 bwd["library_ms"] = None
             emit(bwd)
@@ -508,8 +564,7 @@ def phase_flash_kernels(cases):
                                       reps=20),
                "plain_ms": cuda_ms(lambda: flash_attention_reference(
                    q, k, v, bias), reps=3, warmup=1),
-               "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
-                   q, k, v, attn_mask=lib_mask), reps=20),
+               **sdpa_forward(q, k, v, lib_mask, reps=20),
                "library": "SDPA",
                "bound_ms": bounds["fwd"][0], "bound_by": bounds["fwd"][1]}
         fwd.update(rates(4 * 64 * b * h * lq * lk, fwd["bound_ms"],
@@ -526,15 +581,6 @@ def phase_flash_kernels(cases):
             errs = {n: _rel_err(g, r) for n, g, r in
                     zip(("dq", "dk", "dv"), (dq, dk, dv), ref)}
             del dq, dk, dv, ref
-            ql, kl, vl = (x.detach().clone().requires_grad_(True)
-                          for x in (q, k, v))
-
-            def sdpa():
-                return F.scaled_dot_product_attention(ql, kl, vl,
-                                                      attn_mask=lib_mask)
-
-            lib_bwd = (cuda_ms(lambda: sdpa().backward(do), reps=10)
-                       - cuda_ms(sdpa, reps=10))
             bwd = {"phase": "kernel", "name": "flash_bwd", "case": name,
                    "shape": shape,
                    "max_abs_err": {n: e for n, (e, _) in errs.items()},
@@ -546,18 +592,27 @@ def phase_flash_kernels(cases):
                        q, k, v, o, lse, do, bias, delta), reps=10),
                    "plain_ms": cuda_ms(lambda: flash_backward_reference(
                        q, k, v, o, lse, do, bias), reps=2, warmup=1),
-                   "library_ms": lib_bwd,
-                   "library": "SDPA fwd+bwd minus fwd",
                    "bound_ms": {part: bounds[part][0]
                                 for part in ("dq", "dkv", "bwd")},
                    "bound_by": {part: bounds[part][1]
                                 for part in ("dq", "dkv", "bwd")}}
             bwd["kernel_ms"] = bwd["dq_ms"] + bwd["dkv_ms"]
+            # device time: the dQ launch (D prologue + dQ program) and the
+            # dK/dV launch
+            bwd["dq_device_ms"], dq_names = device_window(
+                lambda: _launch_dq(q, k, v, o, lse, do, bias), reps=10)
+            bwd["dkv_device_ms"], dkv_names = device_window(
+                lambda: _launch_dkv(q, k, v, o, lse, do, bias, delta),
+                reps=10)
+            bwd["device_ms"] = bwd["dq_device_ms"] + bwd["dkv_device_ms"]
+            bwd["device_kernels"] = {**dq_names, **dkv_names}
+            # SDPA takes an additive mask in the inputs' dtype
+            sdpa_yardstick(bwd, q, k, v, do, lib_mask, reps=10)
             emit(bwd)
             check(all(e <= TOL_GRAD_REL * m for e, m in errs.values()),
                   f"flash_bwd disagrees with its plain version: {bwd}")
             rows["bwd"] = bwd
-            del ql, kl, vl, delta
+            del delta
         out[name] = rows
         del q, k, v, do, bias, o, lse
         torch.cuda.empty_cache()
@@ -920,7 +975,7 @@ def phase_blip_grad_check(seed):
     worst = max(resolved, key=kp.get)
     vision = [n for n in names if n.startswith("vis_model.")]
     loss_rel = abs(kern["loss"] - plain["loss"]) / abs(plain["loss"])
-    row = {"phase": "blip_grad_check", "rows": b,
+    row = {"phase": "blip_grad_check", "seed": seed, "rows": b,
            "frames": b * BLIP["frames"],
            "loss_kernel": kern["loss"], "loss_plain": plain["loss"],
            "loss_f32": oracle["loss"],
@@ -1286,6 +1341,8 @@ def phase_split_kernels(rate):
             dk, dv = gf._launch_bwd_dkv(q, k, v, lse, do, mask, num_img,
                                         delta, r, seed)
             dq_again, _ = gf._launch_bwd_dq(*args)
+            dk_again, dv_again = gf._launch_bwd_dkv(
+                q, k, v, lse, do, mask, num_img, delta, r, seed)
             fused = gf._launch_bwd(*args)
             sub = [x[:rows_plain] for x in (q, k, v, o, lse, do, mask)]
             ref = gf.git_flash_backward_split_reference(*sub, num_img, r,
@@ -1297,7 +1354,9 @@ def phase_split_kernels(rate):
             vs_k2 = {f"d{n}": _rel_err(g, f)
                      for n, g, f in zip("qkv", got, fused)}
             bit_equal = bool(torch.equal(dq, dq_again))
-            del ref, fused, dq_again, got
+            dkv_bit_equal = bool(torch.equal(dk, dk_again)
+                                 and torch.equal(dv, dv_again))
+            del ref, fused, dq_again, dk_again, dv_again, got
             row = {"phase": "split_kernels", "case": name, "rate": r,
                    "shape": shape, "attended_pairs": pairs,
                    "plain_rows": rows_plain,
@@ -1308,6 +1367,7 @@ def phase_split_kernels(rate):
                    "max_abs_err_vs_k2": {n: e for n, (e, _) in
                                          vs_k2.items()},
                    "tol_rel": TOL_GRAD_REL, "dq_bit_identical": bit_equal,
+                   "dkv_bit_identical": dkv_bit_equal,
                    "dq_ms": cuda_ms(lambda: gf._launch_bwd_dq(*args),
                                     reps=10),
                    "dkv_ms": cuda_ms(lambda: gf._launch_bwd_dkv(
@@ -1322,26 +1382,27 @@ def phase_split_kernels(rate):
                    "part_bound_ms": {p: parts[p][0] for p in parts},
                    "part_bound_by": {p: parts[p][1] for p in parts}}
             row["kernel_ms"] = row["dq_ms"] + row["dkv_ms"]
+            # device time of every kernel each launcher runs (K3's dQ
+            # launch holds the D prologue; K2's the dQ fill and cast)
+            row["dq_device_ms"], dq_names = device_window(
+                lambda: gf._launch_bwd_dq(*args), reps=5)
+            row["dkv_device_ms"], dkv_names = device_window(
+                lambda: gf._launch_bwd_dkv(q, k, v, lse, do, mask, num_img,
+                                           delta, r, seed), reps=5)
+            row["device_ms"] = row["dq_device_ms"] + row["dkv_device_ms"]
+            row["device_kernels"] = {**dq_names, **dkv_names}
+            row["k2_device_ms"], _ = device_window(
+                lambda: gf._launch_bwd(*args), reps=5)
             row["ms_per_1e9_pairs"] = {
                 "k3": row["kernel_ms"] / pairs * 1e9,
                 "k2": row["k2_ms"] / pairs * 1e9}
             if r == 0.0:
-                ql, kl, vl = (x.detach().clone().requires_grad_(True)
-                              for x in (q, k, v))
-
-                def sdpa():
-                    return F.scaled_dot_product_attention(
-                        ql, kl, vl, attn_mask=ok_mask)
-
-                row["library_ms"] = (cuda_ms(lambda: sdpa().backward(do),
-                                             reps=5)
-                                     - cuda_ms(sdpa, reps=5))
-                row["library"] = "SDPA, boolean mask: fwd+bwd minus fwd"
-                del ql, kl, vl
+                sdpa_yardstick(row, q, k, v, do, ok_mask, reps=5)
             else:
                 row["library_ms"] = None
             emit(row)
-            check(bit_equal, f"K3's dQ differs between two launches: {row}")
+            check(bit_equal and dkv_bit_equal,
+                  f"K3's gradients differ between two launches: {row}")
             check(all(e <= TOL_GRAD_REL * m for e, m in vs_plain.values())
                   and all(e <= TOL_GRAD_REL * vs_plain[n][1]
                           for n, (e, _) in vs_k2.items()),
@@ -1350,22 +1411,26 @@ def phase_split_kernels(rate):
             del o, lse, dq, dk, dv, delta
         del q, k, v, do, mask, ok_mask
         torch.cuda.empty_cache()
-    crossover = {}
-    for r in (0.0, rate):
-        wins = [(row["shape"]["S"], row["kernel_ms"] < row["k2_ms"])
-                for row in rows if row["rate"] == r]
-        wins.sort()
-        # the shortest measured S from which K3 wins at every longer one
-        cross = None
-        for s_len, _ in wins:
-            if all(w for s2, w in wins if s2 >= s_len):
-                cross = s_len
-                break
-        crossover[str(r)] = cross
-    emit({"phase": "split_crossover", "measured_min_seq": crossover,
+    def crossover(key, k2_key):
+        """per rate, the shortest measured S from which K3 (``key``) takes
+        less time than K2 (``k2_key``) at every longer one"""
+        out = {}
+        for r in (0.0, rate):
+            wins = sorted((row["shape"]["S"], row[key] < row[k2_key])
+                          for row in rows if row["rate"] == r)
+            out[str(r)] = next((s_len for s_len, _ in wins
+                                if all(w for s2, w in wins if s2 >= s_len)),
+                               None)
+        return out
+
+    # the route follows device time: the launchers' host time runs ahead
+    # of the card on an asynchronous backward
+    cross = crossover("device_ms", "k2_device_ms")
+    emit({"phase": "split_crossover", "measured_min_seq": cross,
+          "measured_min_seq_events": crossover("kernel_ms", "k2_ms"),
           "route_constants": {"0.0": gf._SPLIT_MIN_SEQ,
                               str(rate): gf._SPLIT_MIN_SEQ_DROPOUT}})
-    return rows, crossover
+    return rows, cross
 
 
 def _vitl16_grads(route, remat, inputs, seed):
@@ -1645,7 +1710,7 @@ def main() -> int:
         return 2
 
     smi = phase_device()
-    phase_build()
+    ptxas = phase_build()
     b, fr, tpf = SLICE["batch_size"], SLICE["frames"], 197
     kernel_rows = phase_kernel([(b, 12, fr * tpf, SLICE["max_txt_len"], 64),
                                 (2, 12, 3 * tpf, 13, 64)])
@@ -1672,7 +1737,8 @@ def main() -> int:
     train_row, git_train = phase_train(TRAIN["seed"])
     blip_serve_row, blip_serve = phase_blip_serve(BLIP["requests"],
                                                   BLIP["seed"])
-    phase_blip_grad_check(BLIP["seed"])
+    for seed in (BLIP["seed"],) + BLIP_GRAD_EXTRA_SEEDS:
+        phase_blip_grad_check(seed)
     blip_train_row, blip_train = phase_blip_train(BLIP_TRAIN["seed"])
     split_rows, crossover = phase_split_kernels(rate)
     vitl16_row, vitl16 = phase_vitl16_grad_check()
@@ -1702,6 +1768,8 @@ def main() -> int:
     ragged = train_rows[1]
     hash_ms = ((fwd["kernel_ms"] - fwd["kernel_ms_rate0"])
                + (bwd["kernel_ms"] - bwd0["kernel_ms"]))
+    hash_device_ms = ((fwd["device_ms"] - fwd["device_ms_rate0"])
+                      + (bwd["device_ms"] - bwd0["device_ms"]))
     hash_bound = roofline(2 * HASH_OPS_PER_PAIR * main_t["pairs"], 4,
                           PEAK_SCALAR_OPS)
     grad_err = max(max(r["max_abs_err"].values())
@@ -1716,6 +1784,18 @@ def main() -> int:
         return {"launches": sum(by_path[name].values()),
                 "launches_by_path": by_path[name]}
 
+    def timing(ms, device, bound_ms):
+        """events and device ms with the bound's share of each"""
+        return {"ms": ms, "device_ms": device, "bound_share": bound_ms / ms,
+                "bound_share_device": bound_ms / device}
+
+    def library(row):
+        return {"library_ms": row["library_ms"],
+                "library_events_ms": row["library_events_ms"],
+                "library": row["library"],
+                "library_kernels": row["library_kernels"],
+                "factor_device": row["factor"]}
+
     k3 = next(r for r in split_rows
               if r["case"] == "vitl16" and r["rate"] == rate)
     k3_rate0 = next(r for r in split_rows
@@ -1729,19 +1809,26 @@ def main() -> int:
                                    for r in split_rows
                                    for p in (("dq",) if part == "dq"
                                              else ("dk", "dv"))),
-                "ms": k3[f"{part}_ms"], "plain_ms": k3["plain_ms"],
+                **timing(k3[f"{part}_ms"], k3[f"{part}_device_ms"],
+                         k3["part_bound_ms"][part]),
+                "plain_ms": k3["plain_ms"],
                 "bound_ms": k3["part_bound_ms"][part],
                 "bound_by": k3["part_bound_by"][part],
-                "library_ms": k3_rate0["library_ms"],
+                **library(k3_rate0),
                 "at": f"vitl16 shape (8, 12, 4144, 64), rate {rate}; plain "
-                      f"time of the whole backward at 2 rows, library (SDPA "
-                      f"fwd+bwd minus fwd) at rate 0",
-                "whole_backward": {"ms": k3["kernel_ms"],
-                                   "bound_ms": k3["bound_ms"],
-                                   "bound_by": k3["bound_by"],
-                                   "k2_ms": k3["k2_ms"]},
+                      f"time of the whole backward at 2 rows, library (SDPA) "
+                      f"and factor of the whole backward at rate 0",
+                "whole_backward": {
+                    **timing(k3["kernel_ms"], k3["device_ms"],
+                             k3["bound_ms"]),
+                    "bound_ms": k3["bound_ms"], "bound_by": k3["bound_by"],
+                    "k2_ms": k3["k2_ms"], "k2_device_ms": k3["k2_device_ms"],
+                    "rate0": timing(k3_rate0["kernel_ms"],
+                                    k3_rate0["device_ms"],
+                                    k3_rate0["bound_ms"]),
+                    "k2_device_ms_rate0": k3_rate0["k2_device_ms"]},
                 "crossover_min_seq": crossover,
-                "card": smi}
+                "ptxas": ptxas.get("git_flash_bwd_split", {}), "card": smi}
 
     def k6_entry(part, name, what):
         return {"name": name, "route": "cuda",
@@ -1750,16 +1837,21 @@ def main() -> int:
                 "max_abs_err": max(r["max_abs_err"][p] for r in k6_rows
                                    for p in (("dq",) if part == "dq"
                                              else ("dk", "dv"))),
-                "ms": k6[f"{part}_ms"], "plain_ms": k6["plain_ms"],
+                **timing(k6[f"{part}_ms"], k6[f"{part}_device_ms"],
+                         k6["bound_ms"][part]),
+                "plain_ms": k6["plain_ms"],
                 "bound_ms": k6["bound_ms"][part],
                 "bound_by": k6["bound_by"][part],
-                "library_ms": k6["library_ms"],
+                **library(k6),
                 "at": "BLIP-base training shape (32, 12, 577, 64); plain and "
-                      "library times are of the whole backward",
-                "whole_backward": {"ms": k6["kernel_ms"],
-                                   "bound_ms": k6["bound_ms"]["bwd"],
-                                   "bound_by": k6["bound_by"]["bwd"]},
-                "card": smi}
+                      "library times and the factor are of the whole "
+                      "backward",
+                "whole_backward": {
+                    **timing(k6["kernel_ms"], k6["device_ms"],
+                             k6["bound_ms"]["bwd"]),
+                    "bound_ms": k6["bound_ms"]["bwd"],
+                    "bound_by": k6["bound_by"]["bwd"]},
+                "ptxas": ptxas.get("flash_bwd", {}), "card": smi}
 
     emit({"kernels": [{
         "name": "git_flash_fwd", "route": "cuda",
@@ -1768,12 +1860,15 @@ def main() -> int:
         **launches("git_flash_fwd"),
         "max_abs_err": max([r["max_abs_err_o"] for r in kernel_rows]
                            + [t["fwd"]["max_abs_err_o"] for t in train_rows]),
-        "ms": fwd["kernel_ms"], "plain_ms": fwd["plain_ms"],
+        **timing(fwd["kernel_ms"], fwd["device_ms"], fwd["bound_ms"]),
+        "plain_ms": fwd["plain_ms"],
         "bound_ms": fwd["bound_ms"], "bound_by": fwd["bound_by"],
         "library_ms": fwd["library_ms"],
-        "at": f"training shape, rate {rate}",
-        "tflops": fwd["tflops"], "bound_share": fwd["bound_share"],
-        "device_ms": fwd["device_ms"],
+        "library_events_ms": fwd["library_events_ms"],
+        "library_kernels": fwd["library_kernels"],
+        "at": f"training shape, rate {rate}; library (SDPA forward, device "
+              f"time) at rate 0",
+        "tflops": fwd["tflops"],
         "ms_rate0": fwd["kernel_ms_rate0"], "rate0": fwd["rate0"],
         "device_ms_rate0": fwd["device_ms_rate0"],
         "serving": {"ms": serve["kernel_ms"], "device_ms": serve["device_ms"],
@@ -1786,19 +1881,22 @@ def main() -> int:
         "kernel_share_of_prompt_fill": (
             slice_row["launches"]["git_flash_fwd"] / slice_row["batches"]
             * serve["kernel_ms"] / slice_row["prompt_fill_ms"]),
-        "card": smi}, {
+        "ptxas": ptxas.get("git_flash_fwd", {}), "card": smi}, {
         "name": "git_flash_bwd", "route": "cuda",
         "source": "sasvqa_torch/ops/csrc/git_flash_bwd.cu",
         "replaces": "sasvqa_tpu/ops/git_flash.py:421 (_fused_bwd_kernel)",
         **launches("git_flash_bwd"),
         "max_abs_err": grad_err,
-        "ms": bwd["kernel_ms"], "plain_ms": bwd["plain_ms"],
+        **timing(bwd["kernel_ms"], bwd["device_ms"], bwd["bound_ms"]),
+        "plain_ms": bwd["plain_ms"],
         "bound_ms": bwd["bound_ms"], "bound_by": bwd["bound_by"],
-        "library_ms": bwd0["library_ms"],
-        "at": f"training shape, rate {rate}; library at rate 0",
-        "ms_rate0": bwd0["kernel_ms"], "plain_ms_rate0": bwd0["plain_ms"],
+        **library(bwd0),
+        "at": f"training shape, rate {rate}; library (SDPA) and factor at "
+              f"rate 0",
+        "ms_rate0": bwd0["kernel_ms"], "device_ms_rate0": bwd0["device_ms"],
+        "plain_ms_rate0": bwd0["plain_ms"],
         "ragged_ms": ragged[f"bwd_{rate}"]["kernel_ms"],
-        "card": smi},
+        "ptxas": ptxas.get("git_flash_bwd", {}), "card": smi},
         k3_entry("dq", "git_flash_bwd_dq",
                  "sasvqa_tpu/ops/git_flash.py:296 (_dq_kernel)"),
         k3_entry("dkv", "git_flash_bwd_dkv",
@@ -1809,7 +1907,8 @@ def main() -> int:
                     "_dropout_block), inside K1, K2 and K3",
         **launches(_build.HASH_DROPOUT),
         "max_abs_err": fwd["max_abs_err_o"],
-        "ms": hash_ms, "plain_ms": main_t["hash_plain_ms"],
+        **timing(hash_ms, hash_device_ms, hash_bound[0]),
+        "plain_ms": main_t["hash_plain_ms"],
         "bound_ms": hash_bound[0], "bound_by": hash_bound[1],
         "library_ms": None,
         "at": "training shape: K1 + K2 time at the rate minus at rate 0",
@@ -1820,12 +1919,16 @@ def main() -> int:
         **launches("flash_fwd"),
         "max_abs_err": max(r["fwd"]["max_abs_err_o"]
                            for r in flash_rows.values()),
-        "ms": k5_serve["kernel_ms"], "plain_ms": k5_serve["plain_ms"],
+        **timing(k5_serve["kernel_ms"], k5_serve["device_ms"],
+                 k5_serve["bound_ms"]),
+        "plain_ms": k5_serve["plain_ms"],
         "bound_ms": k5_serve["bound_ms"], "bound_by": k5_serve["bound_by"],
         "library_ms": k5_serve["library_ms"],
-        "at": "BLIP-base serving shape (64, 12, 577, 64), no bias",
-        "tflops": k5_serve["tflops"], "bound_share": k5_serve["bound_share"],
-        "device_ms": k5_serve["device_ms"],
+        "library_events_ms": k5_serve["library_events_ms"],
+        "library_kernels": k5_serve["library_kernels"],
+        "at": "BLIP-base serving shape (64, 12, 577, 64), no bias; library "
+              "(SDPA forward) by device time",
+        "tflops": k5_serve["tflops"],
         "training": {key: k5_train[key] for key in
                      ("kernel_ms", "device_ms", "plain_ms", "bound_ms",
                       "library_ms", "tflops", "bound_share")},
@@ -1833,7 +1936,7 @@ def main() -> int:
             blip_serve_row["launches"]["flash_fwd"]
             / blip_serve_row["batches"] * k5_serve["kernel_ms"]
             / blip_serve_row["forward_ms"]),
-        "card": smi},
+        "ptxas": ptxas.get("flash_fwd", {}), "card": smi},
         k6_entry("dq", "flash_bwd_dq",
                  "sasvqa_tpu/ops/flash_attention.py:246 (_dq_core)"),
         k6_entry("dkv", "flash_bwd_dkv",

@@ -43,22 +43,16 @@
 #pragma once
 
 #include "git_flash_common.cuh"
-
-#include <cuda.h>
-#include <math.h>
+#include "sm90_common.cuh"
 
 namespace {
 
-enum MaskKind { kNoMask = 0, kBias = 1, kGitMask = 2 };
-
-constexpr int FWD_BM = 64;          // query rows a CTA: one warpgroup
+constexpr int FWD_BM = TILE_ROWS;   // query rows a CTA: one warpgroup
 constexpr int FWD_THREADS = 160;    // the consumer warpgroup + a producer warp
-constexpr int FWD_BN = 64;          // keys a tile
-constexpr int TAIL_BN = 16;         // keys of a narrow last tile
+constexpr int FWD_BN = TILE_ROWS;   // keys a tile
 constexpr int FWD_STAGES = 4;       // K/V ring depth
 constexpr int FWD_CTAS_PER_SM = 3;  // registers: at most 136 a thread
 constexpr int S_REGS = FWD_BN / 2;  // f32 scores a thread holds
-constexpr int ROW_BYTES = DH * 2;                  // one bf16 row: 128 B
 constexpr int Q_TILE_BYTES = FWD_BM * ROW_BYTES;   // 8 KB
 constexpr int KV_TILE_BYTES = FWD_BN * ROW_BYTES;  // 8 KB
 constexpr int BAR_OFF = Q_TILE_BYTES + 2 * FWD_STAGES * KV_TILE_BYTES;
@@ -66,13 +60,6 @@ constexpr int BAR_OFF = Q_TILE_BYTES + 2 * FWD_STAGES * KV_TILE_BYTES;
 // align the base to the 1024 B of the swizzle pattern: 73 KB, three CTAs
 // an SM
 constexpr int FWD_SMEM_BYTES = BAR_OFF + 8 * (1 + 3 * FWD_STAGES) + 1024;
-constexpr float LOG2E = 1.4426950408889634f;
-constexpr float LN2 = 0.6931471805599453f;
-
-// nonzero return codes of the launchers beyond cudaError_t (decoded by
-// kernel_error_string in mma_common.cuh)
-constexpr int ERR_TMA_ENCODE = 10000;      // + the CUresult
-constexpr int ERR_TMA_ENTRY_POINT = 20000;
 
 struct FwdParams {
   CUtensorMap tm_q, tm_k, tm_v;
@@ -91,156 +78,6 @@ struct FwdParams {
   uint32_t thresh;
   float inv_keep;
 };
-
-// ---- PTX wrappers ---------------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-// wait until the phase of parity `parity` has completed; a wait that
-// never ends (a copy that cannot arrive) traps, so a fault surfaces as a
-// launch error instead of a hung card
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  uint32_t tries = 0;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (++tries == (1u << 28)) __trap();
-  } while (!done);
-}
-
-// one (Dh, rows, 1, 1) box at (0, row, h, b) into shared memory; rows
-// past the tensor's extent arrive as zeros and still count their bytes
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int row, int h, int b) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(0), "r"(row),
-      "r"(h), "r"(b)
-      : "memory");
-}
-
-// 2^x in one MUFU op; denormal results flush to 0 (p < 2^-126 adds nothing
-// to l or to the bf16 P)
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// wgmma shared-memory descriptor for a 128-byte-swizzled tile of 128-byte
-// rows: `sbo` = 1024 B between 8-row groups; `lbo` is read only by an
-// MN-major operand wider than one 64-element swizzle atom
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-// wait until at most N committed wgmma groups are pending
-template <int N>
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// keeps the compiler from moving reads or writes of wgmma registers
-// across the fences and waits around them
-template <int N>
-__device__ __forceinline__ void pin(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-// d(64 x 64, f32) (+)= A(64 x 16, smem K-major) * B(16 x 64, smem K-major)
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
-                                             uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31},"
-      " %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// d(64 x 16, f32) (+)= A(64 x 16, smem K-major) * B(16 x 16, smem K-major)
-__device__ __forceinline__ void wgmma_ss_n16(float (&d)[8], uint64_t da,
-                                             uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7},"
-      " %8, %9, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// d(64 x 64, f32) += A(64 x 16, bf16 registers) * B(16 x 64, smem MN-major)
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
-                                             const uint32_t (&a)[4],
-                                             uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31},"
-      " {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
 
 // ---- the kernel -----------------------------------------------------------
 
@@ -344,8 +181,7 @@ __device__ __forceinline__ void tile_softmax(float (&s)[NS], float (&m_run)[2],
   }
 }
 
-// acc *= corr per row; then P to bf16 A-fragments (the C-fragments of two
-// adjacent 8-key slices form one A-fragment of 16 keys)
+// acc *= corr per row; then P to bf16 A-fragments
 template <int NS>
 __device__ __forceinline__ void rescale_and_pack(float (&acc)[32],
                                                  uint32_t (&pa)[NS / 8][4],
@@ -358,26 +194,7 @@ __device__ __forceinline__ void rescale_and_pack(float (&acc)[32],
     acc[4 * j + 2] *= corr[1];
     acc[4 * j + 3] *= corr[1];
   }
-#pragma unroll
-  for (int kk = 0; kk < NS / 8; ++kk) {
-    pa[kk][0] = pack_bf16x2(s[8 * kk + 0], s[8 * kk + 1]);
-    pa[kk][1] = pack_bf16x2(s[8 * kk + 2], s[8 * kk + 3]);
-    pa[kk][2] = pack_bf16x2(s[8 * kk + 4], s[8 * kk + 5]);
-    pa[kk][3] = pack_bf16x2(s[8 * kk + 6], s[8 * kk + 7]);
-  }
-}
-
-// acc += P V over KS 16-key steps of the V tile at shared address `sv`
-template <int KS>
-__device__ __forceinline__ void issue_pv(float (&acc)[32],
-                                         const uint32_t (&pa)[KS][4],
-                                         uint32_t sv) {
-  const uint64_t dv = sw128_desc(sv, KV_TILE_BYTES, 1024);
-#pragma unroll
-  for (int kk = 0; kk < KS; ++kk) {
-    // 16 keys = two 8-row groups: +2048 B
-    wgmma_rs_n64(acc, pa[kk], dv + ((kk * 16 * ROW_BYTES) >> 4));
-  }
+  pack_a(pa, s);
 }
 
 template <int MASK, bool DROPOUT>
@@ -468,7 +285,6 @@ flash_fwd_sm90_kernel(const __grid_constant__ FwdParams p) {
   const bool narrow_tail = kv_end - (n_tiles - 1) * FWD_BN <= TAIL_BN;
   const int n_full = n_tiles - (narrow_tail ? 1 : 0);
 
-  const uint64_t dq = sw128_desc(sq, 16, 1024);
   mbar_wait(full_q, 0);
 
   for (int it = 0; it < n_full; ++it) {
@@ -479,19 +295,14 @@ flash_fwd_sm90_kernel(const __grid_constant__ FwdParams p) {
     const int k0 = it * FWD_BN;
 
     mbar_wait(full_k0 + 8 * st, phase);
-    const uint64_t dk = sw128_desc(sk0 + st * KV_TILE_BYTES, 16, 1024);
     pin(s);
     pin(acc);
     wg_fence();
-#pragma unroll
-    for (int kk = 0; kk < DH / 16; ++kk) {
-      // 16 bf16 of a 128-byte swizzled row: +32 B, +2 in the descriptor
-      wgmma_ss_n64(s, dq + 2 * kk, dk + 2 * kk, kk);
-    }
+    issue_ss(s, sq, sk0 + st * KV_TILE_BYTES);  // S = Q K^T
     wg_commit();
     if (it > 0) {
       mbar_wait(full_v0 + 8 * sp, phase_p);
-      issue_pv(acc, pa, sv0 + sp * KV_TILE_BYTES);
+      issue_rs(acc, pa, sv0 + sp * KV_TILE_BYTES);
     }
     wg_commit();  // an empty group on the first tile
     // S is ready; the previous tile's P.V runs on under the softmax below,
@@ -515,18 +326,14 @@ flash_fwd_sm90_kernel(const __grid_constant__ FwdParams p) {
     float s_t[TAIL_BN / 2];
     uint32_t pa_t[1][4];
     mbar_wait(full_k0 + 8 * st, (it / FWD_STAGES) & 1);
-    const uint64_t dk = sw128_desc(sk0 + st * KV_TILE_BYTES, 16, 1024);
     pin(s_t);
     pin(acc);
     wg_fence();
-#pragma unroll
-    for (int kk = 0; kk < DH / 16; ++kk) {
-      wgmma_ss_n16(s_t, dq + 2 * kk, dk + 2 * kk, kk);
-    }
+    issue_ss(s_t, sq, sk0 + st * KV_TILE_BYTES);
     wg_commit();
     if (it > 0) {
       mbar_wait(full_v0 + 8 * sp, ((it - 1) / FWD_STAGES) & 1);
-      issue_pv(acc, pa, sv0 + sp * KV_TILE_BYTES);
+      issue_rs(acc, pa, sv0 + sp * KV_TILE_BYTES);
     }
     wg_commit();
     wg_wait<1>();
@@ -541,7 +348,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ FwdParams p) {
     mbar_wait(full_v0 + 8 * st, (it / FWD_STAGES) & 1);
     pin(acc);
     wg_fence();
-    issue_pv(acc, pa_t, sv0 + st * KV_TILE_BYTES);
+    issue_rs(acc, pa_t, sv0 + st * KV_TILE_BYTES);
     wg_commit();
     wg_wait<0>();
     pin(acc);
@@ -550,7 +357,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ FwdParams p) {
     mbar_wait(full_v0 + 8 * sp, ((n_tiles - 1) / FWD_STAGES) & 1);
     pin(acc);
     wg_fence();
-    issue_pv(acc, pa, sv0 + sp * KV_TILE_BYTES);
+    issue_rs(acc, pa, sv0 + sp * KV_TILE_BYTES);
     wg_commit();
     wg_wait<0>();
     pin(acc);
@@ -576,68 +383,6 @@ flash_fwd_sm90_kernel(const __grid_constant__ FwdParams p) {
           (m_run[i] + log2f(safe_l)) * LN2;
     }
   }
-}
-
-// ---- host side ------------------------------------------------------------
-
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
-                                  cuuint32_t, void*, const cuuint64_t*,
-                                  const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave,
-                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                  CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled through the runtime's driver entry point, so the
-// library needs no -lcuda
-int encode_tiled_fn(EncodeTiledFn* out) {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
-#endif
-    if (err != cudaSuccess) return static_cast<int>(err);
-    if (found != cudaDriverEntryPointSuccess || ptr == nullptr) {
-      return ERR_TMA_ENTRY_POINT;
-    }
-    fn = reinterpret_cast<EncodeTiledFn>(ptr);
-  }
-  *out = fn;
-  return 0;
-}
-
-// a 4-D (Dh, rows, H, B) bf16 map with (box_rows, Dh) boxes and 128-byte
-// swizzle over a (B, H, rows, Dh) view with element strides (sb, sh, ss)
-int encode_qkv_map(CUtensorMap* map, const void* ptr, int rows, int H, int B,
-                   long long sb, long long sh, long long ss, int box_rows) {
-  EncodeTiledFn encode;
-  const int err = encode_tiled_fn(&encode);
-  if (err) return err;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(DH),
-                              static_cast<cuuint64_t>(rows),
-                              static_cast<cuuint64_t>(H),
-                              static_cast<cuuint64_t>(B)};
-  const long long st[3] = {ss, sh, sb};
-  const int ext[3] = {rows, H, B};
-  cuuint64_t strides[3];
-  for (int i = 0; i < 3; ++i) {
-    // the stride of an axis of extent 1 is never used: any legal value
-    strides[i] = static_cast<cuuint64_t>(ext[i] > 1 ? st[i] : DH) * 2;
-  }
-  const cuuint32_t box[4] = {static_cast<cuuint32_t>(DH),
-                             static_cast<cuuint32_t>(box_rows), 1, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  const CUresult res = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
-      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return res == CUDA_SUCCESS ? 0 : ERR_TMA_ENCODE + static_cast<int>(res);
 }
 
 // Encodes the q/k/v maps into `p` (strides in elements, (sb, sh, ss) for

@@ -1,6 +1,6 @@
-// Pieces shared by the GIT-mask flash-attention kernels (git_flash_fwd.cu,
-// git_flash_bwd.cu): the mask test and the in-kernel dropout hash, over the
-// tensor-core helpers of mma_common.cuh.
+// Pieces shared by the GIT-mask flash-attention kernels (K1
+// git_flash_fwd.cu, K2 git_flash_bwd.cu, K3 git_flash_bwd_split.cu): the
+// mask test and the in-kernel dropout hash, over mma_common.cuh.
 #pragma once
 
 #include "mma_common.cuh"

@@ -1,7 +1,7 @@
-// Pieces shared by every flash-attention kernel of the port (the GIT-mask
-// kernels git_flash_{fwd,bwd}.cu and the additive-bias kernels
-// flash_{fwd,bwd}.cu): the bf16 tensor-core product, fragment packing, the
-// tile loader, the D = rowsum(dO * O) prologue and the error string.
+// Pieces shared by every flash-attention kernel of the port: bf16
+// packing, the D = rowsum(dO * O) prologue of the backward kernels and the
+// launchers' error string; and the warp-level mma.sync product and tile
+// loader of the fused GIT backward (git_flash_bwd.cu).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -55,21 +55,6 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
   }
 }
 
-// The A-fragments of a warp's 16 rows x DH from a smem tile (rows r0..r0+15),
-// one per 16-wide slice of DH
-__device__ __forceinline__ void load_a_frags(uint32_t (&a)[DH / 16][4],
-                                             const __nv_bfloat16* tile, int r0,
-                                             int g, int t) {
-#pragma unroll
-  for (int kk = 0; kk < DH / 16; ++kk) {
-    const int c = kk * 16 + 2 * t;
-    a[kk][0] = ld_u32(&tile[(r0 + g) * PITCH + c]);
-    a[kk][1] = ld_u32(&tile[(r0 + g + 8) * PITCH + c]);
-    a[kk][2] = ld_u32(&tile[(r0 + g) * PITCH + c + 8]);
-    a[kk][3] = ld_u32(&tile[(r0 + g + 8) * PITCH + c + 8]);
-  }
-}
-
 constexpr int DELTA_THREADS = 128;
 constexpr int DELTA_ROWS = DELTA_THREADS / 8;  // rows per block, 8 threads each
 
@@ -111,7 +96,7 @@ rowsum_product_kernel(const __nv_bfloat16* __restrict__ o,
 }  // namespace
 
 // a launcher's nonzero return code: a cudaError_t, or the tensor-map
-// codes of flash_fwd_sm90.cuh (10000 + CUresult, 20000)
+// codes of sm90_common.cuh (10000 + CUresult, 20000)
 extern "C" const char* kernel_error_string(int code) {
   if (code >= 20000) return "cuTensorMapEncodeTiled: no driver entry point";
   if (code >= 10000) {

@@ -183,7 +183,8 @@ def _bwd_inputs(q, k, v, o, lse, do):
     if lse.shape != (b, h, lq) or lse.dtype != torch.float32 \
             or not lse.is_contiguous():
         raise ValueError("flash_bwd takes a contiguous (B, H, Lq) f32 LSE")
-    return tuple(_build.kernel_ready(x) for x in (q, k, v, o, do))
+    q, k, v, do = (_build.tma_ready(x) for x in (q, k, v, do))
+    return q, k, v, _build.kernel_ready(o), do
 
 
 def _launch_dq(q, k, v, o, lse, do, bias):

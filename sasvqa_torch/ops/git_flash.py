@@ -272,6 +272,25 @@ def fwd_tile_plan(num_img: int, s: int, block_m: int = FWD_BLOCK_M,
     return plan
 
 
+def bwd_tile_plan(num_img: int, s: int, block_m: int = FWD_BLOCK_M,
+                  block_n: int = FWD_BLOCK_N
+                  ) -> Dict[int, List[Tuple[int, bool]]]:
+    """The visit-and-skip rule of K3's dK/dV program, as
+    ``csrc/flash_bwd_sm90.cuh`` applies it: key tile start k0 -> the query
+    tiles it visits, as (q0, masked).  A key tile of text keys only
+    (k0 >= num_img) is attended by no row before its first key, so it
+    starts at the query tile holding row k0; any other key tile visits
+    every query tile.  A key tile wholly below num_img is attendable from
+    every row and runs no mask code.  (The dQ program visits the key
+    tiles of :func:`fwd_tile_plan`.)"""
+    plan = {}
+    for k0 in range(0, s, block_n):
+        q_begin = k0 // block_m * block_m if k0 >= num_img else 0
+        plan[k0] = [(q0, k0 + block_n > num_img)
+                    for q0 in range(q_begin, s, block_m)]
+    return plan
+
+
 def _kernel_fn(name: str):
     fn = _fns.get(name)
     if fn is None:
@@ -402,7 +421,8 @@ def _launch_bwd_dq(q, k, v, o, lse, do, attention_mask, num_img, rate=0.0,
     order.  Returns (dQ, D)."""
     _check_bwd(q, k, v, o, lse, do, attention_mask, num_img)
     b, h, s, dh = q.shape
-    q, k, v, o, do = (_build.kernel_ready(x) for x in (q, k, v, o, do))
+    q, k, v, do = (_build.tma_ready(x) for x in (q, k, v, do))
+    o = _build.kernel_ready(o)
     text_mask = attention_mask.to(torch.int32).contiguous()
     seed_t = _seed_tensor(seed, q.device)
     thresh, inv_keep = _dropout_consts(rate)
@@ -435,7 +455,7 @@ def _launch_bwd_dkv(q, k, v, lse, do, attention_mask, num_img, delta,
             or not delta.is_contiguous():
         raise ValueError("git_flash_bwd_dkv takes a contiguous (B, H, S) "
                          "f32 D")
-    q, k, v, do = (_build.kernel_ready(x) for x in (q, k, v, do))
+    q, k, v, do = (_build.tma_ready(x) for x in (q, k, v, do))
     text_mask = attention_mask.to(torch.int32).contiguous()
     seed_t = _seed_tensor(seed, q.device)
     thresh, inv_keep = _dropout_consts(rate)
@@ -476,11 +496,15 @@ FUSED_BWD = True
 # The shortest S from which the split kernels (K3) take the backward, per
 # dropout rate (0, > 0): the crossover past which K3 was measured faster
 # than K2 at every longer length; None = K2 at every length.  Measured by
-# chip_smoke.py (split_kernels) at S = 604, 1608, 3184 and 4144 on NVIDIA
-# H100 80GB HBM3, 700.00 W (PERF.md): K3 never won from 1608 up
-# (1.16-1.24x K2's time at rate 0, 1.18-1.23x at 0.1), so no crossover.
-_SPLIT_MIN_SEQ = None
-_SPLIT_MIN_SEQ_DROPOUT = None
+# chip_smoke.py (split_kernels, device time of every kernel each launcher
+# runs) at S = 604, 1608, 3184 and 4144 on NVIDIA H100 80GB HBM3,
+# 700.00 W (PERF.md): K3 took less device time than K2 at every length
+# and rate, K3 / K2 ms at rate 0 (0.1): 0.038 / 0.107 (0.050 / 0.113) at
+# S = 604 (B = 2), 1.30 / 3.60 (1.87 / 4.61) at 1608, 2.38 / 6.98
+# (3.55 / 8.67) at 3184, 3.81 / 11.29 (5.75 / 14.34) at 4144.  Only at
+# S = 604 does K3's launchers' host time exceed K2's.
+_SPLIT_MIN_SEQ = 604
+_SPLIT_MIN_SEQ_DROPOUT = 604
 
 
 def _fused_eligible(s: int, rate: float = 0.0) -> bool:

@@ -105,8 +105,11 @@ def test_dropout_forward_matches_plain(cuda, b, h, num_img, l):
 @pytest.mark.parametrize("rate", [0.0, 0.2])
 @pytest.mark.parametrize("b,h,num_img,l", SHAPES)
 def test_backward_matches_plain(cuda, b, h, num_img, l, rate):
-    """K2 through autograd on split-head views of one fused QKV tensor,
-    with dO arriving through merge_heads' backward as a strided view."""
+    """The routed backward (K2, or K3 from the measured crossover in S on)
+    through autograd on split-head views of one fused QKV tensor, with dO
+    arriving through merge_heads' backward as a strided view."""
+    from sasvqa_torch.ops import git_flash as gf
+    fused = gf._fused_eligible(num_img + l, rate)
     qkv, q, k, v = _qkv(cuda, b, h, num_img, l, seed=num_img,
                         requires_grad=True)
     mask = _mask(b, l, l).to(cuda)
@@ -119,11 +122,13 @@ def test_backward_matches_plain(cuda, b, h, num_img, l, rate):
                                    seed=seed)
     merge_heads(out).backward(dctx)
     torch.cuda.synchronize()
-    assert _build.launch_counts["git_flash_bwd"] == 1
+    assert _build.launch_counts["git_flash_bwd"] == (1 if fused else 0)
+    assert _build.launch_counts["git_flash_bwd_dq"] == (0 if fused else 1)
     do = split_heads(dctx, h)
-    refs = git_flash_backward_reference(q.detach(), k.detach(), v.detach(),
-                                        out.detach(), lse, do, mask,
-                                        num_img, rate, seed)
+    reference = (git_flash_backward_reference if fused
+                 else gf.git_flash_backward_split_reference)
+    refs = reference(q.detach(), k.detach(), v.detach(), out.detach(), lse,
+                     do, mask, num_img, rate, seed)
     grads = [split_heads(g, h) for g in qkv.grad.chunk(3, dim=-1)]
     for name, got, ref in zip("qkv", grads, refs):
         assert torch.isfinite(got.float()).all(), name
@@ -504,3 +509,130 @@ def test_k1_tiling_edges_match_plain(cuda, b, h, num_img, l, rate):
                                                    rate, seed)
     assert (out.float() - ref_o.float()).abs().max().item() <= TOL_O
     assert (lse - ref_lse).abs().max().item() <= TOL_LSE
+
+
+# ---- K3 / K6 on the Hopper backward mainloop (64-row tiles, wgmma/TMA) -----
+
+def _grads_close(got, ref):
+    for name, g, r in zip("qkv", got, ref):
+        assert g.shape == r.shape and torch.isfinite(g.float()).all(), name
+        scale = max(r.float().abs().max().item(), 1e-6)
+        err = (g.float() - r.float()).abs().max().item()
+        assert err <= TOL_GRAD_REL * scale, (name, err, scale)
+
+
+TILING_SPLIT_SHAPES = [  # (B, H, num_img, L, rate): S and num_img off tiles
+    (2, 2, 127, 2, 0.0), (1, 2, 128, 5, 0.1), (1, 3, 129, 70, 0.0),
+    (2, 2, 255, 3, 0.1), (2, 2, 1, 200, 0.0), (2, 2, 564, 13, 0.1),
+    (1, 2, 640, 64, 0.0), (1, 1, 1, 1, 0.1)]
+
+
+@pytest.mark.parametrize("b,h,num_img,l,rate", TILING_SPLIT_SHAPES)
+def test_k3_tiling_edges_match_plain(cuda, b, h, num_img, l, rate):
+    """K3 (wgmma/TMA) on split-head views with S and num_img on either
+    side of a tile boundary (577 = 9 * 64 + 1 included), text-heavy
+    sequences and rate 0.1: within the chip_smoke.py tolerance of the
+    plain split backward, one launch of each program, and dQ, dK and dV
+    the same bits on a second launch."""
+    from sasvqa_torch.ops import git_flash as gf
+    _, q, k, v = _qkv(cuda, b, h, num_img, l, seed=3 * num_img + l)
+    mask = _mask(b, l, num_img + 11).to(cuda)
+    seed = torch.tensor([2 ** 31 - 5 * num_img], dtype=torch.int32,
+                        device=cuda)
+    o, lse = git_flash_attention(q, k, v, mask, num_img, rate, seed)
+    gen = torch.Generator(device=cuda).manual_seed(l)
+    do = split_heads(torch.randn((b, num_img + l, h * 64), generator=gen,
+                                 device=cuda).to(torch.bfloat16), h)
+    args = (q, k, v, o, lse, do, mask, num_img, rate, seed)
+    _build.reset_launch_counts()
+    got = gf._launch_bwd_split(*args)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["git_flash_bwd_dq"] == 1
+    assert _build.launch_counts["git_flash_bwd_dkv"] == 1
+    assert _build.launch_counts["hash_dropout"] == (2 if rate else 0)
+    again = gf._launch_bwd_split(*args)
+    for g, a in zip(got, again):
+        assert torch.equal(g, a)
+    _grads_close(got, gf.git_flash_backward_split_reference(*args))
+
+
+@pytest.mark.parametrize("b,h,lq,lk,kind", TILING_FLASH_SHAPES)
+def test_k6_tiling_edges_match_plain(cuda, b, h, lq, lk, kind):
+    """K6 (wgmma/TMA) on split-head views at every ragged edge of its
+    tiles (577 keys and queries, Lq != Lk, each bias kind, a
+    rectangular row bias): within the chip_smoke.py tolerance of the
+    plain backward, one launch of each program, and the same bits on a
+    second launch."""
+    from sasvqa_torch.ops.flash_attention import (_launch_dkv, _launch_dq,
+                                                  flash_forward)
+    q, k, v = _split_head_qkv(cuda, b, h, lq, lk, seed=lq * 7 + lk)
+    bias = _flash_bias(kind, b, h, lq, lk, cuda, lq)
+    o, lse = flash_forward(q, k, v, bias)
+    gen = torch.Generator(device=cuda).manual_seed(lk)
+    do = split_heads(torch.randn((b, lq, h * 64), generator=gen,
+                                 device=cuda).to(torch.bfloat16), h)
+    runs = []
+    _build.reset_launch_counts()
+    for _ in range(2):
+        dq, delta = _launch_dq(q, k, v, o, lse, do, bias)
+        runs.append((dq,) + _launch_dkv(q, k, v, o, lse, do, bias, delta))
+    torch.cuda.synchronize()
+    assert _build.launch_counts["flash_bwd_dq"] == 2
+    assert _build.launch_counts["flash_bwd_dkv"] == 2
+    for g, a in zip(*runs):
+        assert torch.equal(g, a)
+    _grads_close(runs[0], flash_backward_reference(q, k, v, o, lse, do,
+                                                   bias))
+
+
+def test_k6_row_with_every_key_masked_gives_zero_gradients(cuda):
+    """A query row whose bias is -inf at every key (LSE -inf): its dQ is
+    0 and it adds nothing to dK or dV, as in the plain version."""
+    from sasvqa_torch.ops.flash_attention import flash_backward, flash_forward
+    b, h, lq, lk = 2, 2, 200, 300
+    q, k, v = _split_head_qkv(cuda, b, h, lq, lk, seed=9)
+    bias = torch.zeros((b, 1, lq, lk), device=cuda)
+    bias[:, :, 70] = float("-inf")
+    bias[1, :, 199] = float("-inf")
+    o, lse = flash_forward(q, k, v, bias)
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    do = torch.randn(q.shape, generator=gen, device=cuda).to(torch.bfloat16)
+    got = flash_backward(q, k, v, o, lse, do, bias)
+    torch.cuda.synchronize()
+    assert got[0][:, :, 70].abs().max().item() == 0.0
+    assert got[0][1, :, 199].abs().max().item() == 0.0
+    _grads_close(got, flash_backward_reference(q, k, v, o, lse, do, bias))
+    # the masked rows' dO does not reach dK or dV
+    do2 = do.clone()
+    do2[:, :, 70] = 0
+    do2[1, :, 199] = 0
+    for g, g2 in zip(got[1:], flash_backward(q, k, v, o, lse, do2,
+                                             bias)[1:]):
+        assert torch.equal(g, g2)
+
+
+def test_k6_launchers_raise_on_what_they_cannot_take(cuda):
+    """The K6 launchers take bf16 (B, H, L, 64) tensors on the GPU with a
+    contiguous f32 (B, H, Lq) LSE and D; anything else raises, nothing
+    falls back."""
+    from sasvqa_torch.ops.flash_attention import _launch_dkv, _launch_dq
+    q, k, v = _split_head_qkv(cuda, 1, 2, 130, 200, seed=1)
+    lse = torch.zeros((1, 2, 130), device=cuda)
+    o = do = q
+    with pytest.raises(ValueError, match="bf16"):
+        _launch_dq(q.float(), k, v, o, lse, do, None)
+    q32 = torch.zeros((1, 2, 130, 32), device=cuda, dtype=torch.bfloat16)
+    k32 = torch.zeros((1, 2, 200, 32), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="Dh=64"):
+        _launch_dq(q32, k32, k32, q32, lse, q32, None)
+    with pytest.raises(ValueError, match="LSE"):
+        strided = torch.zeros((1, 2, 130, 2), device=cuda)[..., 0]
+        _launch_dq(q, k, v, o, strided, do, None)
+    with pytest.raises(ValueError, match="GPU"):
+        _launch_dq(q.cpu(), k, v, o, lse, do, None)
+    with pytest.raises(ValueError, match="does not broadcast"):
+        _launch_dq(q, k, v, o, lse, do, torch.zeros((1, 1, 7, 200),
+                                                     device=cuda))
+    _, delta = _launch_dq(q, k, v, o, lse, do, None)
+    with pytest.raises(ValueError, match="Lq\\) D"):
+        _launch_dkv(q, k, v, o, lse, do, None, delta[..., :64])

@@ -359,3 +359,49 @@ def test_k1_tile_plan_covers_every_attended_pair(num_img, l, bm, bn):
     if (num_img, l, bm, bn) == (1576, 32, 64, 64):
         assert [m for _, m in plan[0]] == [False] * 24 + [True]
         assert plan == fwd_tile_plan(num_img, s)   # K1's own tiles
+
+
+# (num_img, L): K3's dK/dV tiles with num_img and S at and off multiples
+# of 64, a text-heavy sequence, the ragged 3-frame shape and the training
+# shape
+@pytest.mark.parametrize("num_img,l", [
+    (128, 64), (127, 2), (129, 70), (256, 1), (1, 200), (3 * 197, 13),
+    (8 * 197, 32), (64, 130)])
+def test_k3_bwd_tile_plan_covers_every_attended_pair(num_img, l):
+    """K3's dK/dV program: every attended (row, col) lies in a query tile
+    its key tile visits, no skipped query tile holds an attended pair, and
+    every tile that skips the mask code is attendable throughout
+    (``git_mask_ok``)."""
+    from sasvqa_torch.ops.git_flash import bwd_tile_plan, git_mask_ok
+    s, bm, bn = num_img + l, 64, 64
+    rng = np.random.default_rng(num_img * 7 + l)
+    lens = rng.integers(1, l + 1, size=3)
+    lens[0] = l
+    mask = torch.from_numpy(
+        (np.arange(l)[None, :] < lens[:, None]).astype(np.int32))
+    ok = git_mask_ok(num_img, mask).numpy()             # (B, row, col)
+    plan = bwd_tile_plan(num_img, s, bm, bn)
+    assert plan == bwd_tile_plan(num_img, s)            # K3's own tiles
+    assert sorted(plan) == list(range(0, s, bn))
+    visited = np.zeros((s, s), bool)
+    for k0, tiles in plan.items():
+        cols = slice(k0, min(k0 + bn, s))
+        starts = [q0 for q0, _ in tiles]
+        assert starts == list(range(starts[0], s, bm)) and starts[0] % bm == 0
+        for q0 in range(0, s, bm):
+            rows = slice(q0, min(q0 + bm, s))
+            if q0 not in starts:
+                assert not ok[:, rows, cols].any(), (k0, q0)
+        for q0, masked in tiles:
+            rows = slice(q0, min(q0 + bm, s))
+            visited[rows, cols] = True
+            if not masked:
+                assert ok[:, rows, cols].all(), (k0, q0)
+    assert not (ok & ~visited[None]).any()
+    # a key tile of text keys only starts at its own first row; one of
+    # image keys only visits every query tile and runs no mask code
+    for k0, tiles in plan.items():
+        if k0 >= num_img:
+            assert tiles[0][0] == k0 // bm * bm
+        if k0 + bn <= num_img:
+            assert tiles == [(q0, False) for q0 in range(0, s, bm)]
