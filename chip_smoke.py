@@ -19,12 +19,14 @@ its kernels:
   and BLIP-base training with ``make_scan_train_step(family="classifier")``
   (4 micros of 8 questions, adam);
 - GIT with the ViT-L/14 tower at 16 frames (S = 4144, remat, dropout
-  0.1/0.1): K3 (the split backward) against its plain version and K2 over
-  S = 604..4144 at rates 0 and 0.1 (the crossover that routes the GIT
-  backward), a gradient check of the K3 route against the K2 route and of
-  remat on against off, and the task loop itself, ``start_training`` from
-  a config file (4 updates, validation, snapshots, frames from an
-  in-memory store).
+  0.1/0.1): K3 (the split backward) against its plain version and against
+  K2 (the fused one, and K2 against its own plain version) over
+  S = 604..4144 at rates 0 and 0.1 (the crossover in S, reported beside
+  the route ``FUSED_BWD``), a
+  gradient check of the K3 route against the K2 route and of remat on
+  against off on the routed backward, and the task loop itself,
+  ``start_training`` from a config file (4 updates, validation,
+  snapshots, frames from an in-memory store).
 
 Every kernel row carries the kernel's device time from ``torch.profiler``
 beside CUDA events round its Python call (the backward rows: every
@@ -101,8 +103,8 @@ TOL_F32 = 1e-4
 # K2 vs its plain version: dQ, dK, dV are rounded to bf16 (a relative step
 # of 2^-8), dS is rounded to bf16 from f32 values that differ in their
 # last bits (P from a different exp and summation order), and dQ sums its
-# key tiles by atomics in run-dependent order; allowed error 2^-6 of each
-# gradient's largest magnitude
+# 128-key tiles by TMA reductions in run-dependent order; allowed error
+# 2^-6 of each gradient's largest magnitude
 TOL_GRAD_REL = 2.0 ** -6
 # training forward/backward at GIT-base width, kernel route vs dense route,
 # both bf16 with the same weights, batch and dropout draws: the routes
@@ -250,11 +252,25 @@ def git_flash_bound(num_img, text_mask, h, dh):
     return (*roofline(4 * dh * pairs, nbytes), pairs)
 
 
-def bwd_kernels(s_len, rate):
-    """The backward kernels the route launches at this length and rate:
-    K2, or K3's two."""
-    return (("git_flash_bwd",) if gf._fused_eligible(s_len, rate)
+def bwd_kernels():
+    """The backward kernels the route (``FUSED_BWD``) launches at every
+    length and rate: K2, or K3's two."""
+    return (("git_flash_bwd",) if gf.FUSED_BWD
             else ("git_flash_bwd_dq", "git_flash_bwd_dkv"))
+
+
+def k2_repeat(got, args):
+    """K2 launched again on the same inputs: whether dK and dV are the same
+    bits, and dQ's largest difference (its f32 sums arrive in
+    run-dependent order), absolute and relative to dQ's largest
+    magnitude."""
+    again = gf._launch_bwd(*args)
+    diff = (got[0].float() - again[0].float()).abs().max().item()
+    return {"dkv_bit_identical": bool(torch.equal(got[1], again[1])
+                                      and torch.equal(got[2], again[2])),
+            "dq_rerun_max_abs_diff": diff,
+            "dq_rerun_rel_diff": diff / max(
+                got[0].float().abs().max().item(), 1e-6)}
 
 
 def git_flash_bwd_bound(num_img, text_mask, h, dh):
@@ -330,6 +346,15 @@ def phase_build():
              for name, log in _build.build_logs.items()}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "per_kernel_s": seconds, "ptxas": ptxas, "ptxas_notes": notes})
+    # K2's program holds its wgmma pipeline only without spills and
+    # without a serialized-wgmma or injected-wait note (C7519, an injected
+    # warpgroup.arrive, costs nothing)
+    k2 = ptxas.get("git_flash_bwd", {})
+    check(bool(k2) and all(f.get("spill_stores", 0) == 0
+                           for f in k2.values())
+          and not set(notes.get("git_flash_bwd", [])) - {"C7519"},
+          f"git_flash_bwd spills or serializes its wgmma: {k2}, "
+          f"{notes.get('git_flash_bwd')}")
     return ptxas
 
 
@@ -456,6 +481,7 @@ def phase_train_kernels(shapes, rate):
             o_r, lse_r = git_flash_attention(q, k, v, mask, num_img, r, seed)
             args = (q, k, v, o_r, lse_r, do, mask, num_img, r, seed)
             got = gf._launch_bwd(*args)
+            repeat = k2_repeat(got, args)
             ref = git_flash_backward_reference(*args)
             torch.cuda.synchronize()
             errs = {n: _rel_err(g, rf) for n, g, rf in zip("qkv", got, ref)}
@@ -477,6 +503,10 @@ def phase_train_kernels(shapes, rate):
                 lambda: gf._launch_bwd(*args), reps=10)
             bwd["bound_ms"], bwd["bound_by"] = git_flash_bwd_bound(
                 num_img, mask, h, dh)
+            bwd["bound_share_device"] = bwd["bound_ms"] / bwd["device_ms"]
+            bwd["reduce_only_device_ms"] = device_window(
+                lambda: gf._launch_bwd_reduce_only(*args), reps=10)[0]
+            bwd.update(repeat)
             if r == 0.0:
                 # at rate 0: SDPA's dropout draws a mask of its own
                 sdpa_yardstick(bwd, q, k, v, do, ok_mask, reps=10)
@@ -485,6 +515,8 @@ def phase_train_kernels(shapes, rate):
             emit(bwd)
             check(all(e <= TOL_GRAD_REL * m for e, m in errs.values()),
                   f"git_flash_bwd disagrees with its plain version: {bwd}")
+            check(repeat["dkv_bit_identical"],
+                  f"K2's dK/dV differ between two launches: {bwd}")
             rows[f"bwd_{r}"] = bwd
         rows["hash_plain_ms"] = cuda_ms(
             lambda: hash_dropout_factor(b, h, num_img + l, seed, rate,
@@ -673,7 +705,7 @@ def phase_grad_check(seed):
     n_layers = len(kern["qkv"])
     check(kern["launches"]["git_flash_fwd"] == n_layers
           and all(kern["launches"][k] == n_layers
-                  for k in bwd_kernels(t * 197 + l, 0.0)),
+                  for k in bwd_kernels()),
           f"kernel route did not launch K1 and the routed backward once a "
           f"layer: {row}")
     check(all(x > 0 for x in kern["qkv"]),
@@ -756,7 +788,7 @@ def phase_train(seed):
     check(seq_len == 1608, f"train sequence {seq_len} != 1608")
     check(all(np.isfinite(losses)) and losses[-1] < losses[0],
           f"loss is not finite and falling: {losses}")
-    bwd = bwd_kernels(seq_len, cfg.attention_dropout)
+    bwd = bwd_kernels()
     check(launches["git_flash_fwd"] == n
           and all(launches[k] == n for k in bwd)
           and launches["hash_dropout"] == (1 + len(bwd)) * n,
@@ -1282,6 +1314,9 @@ SPLIT_SHAPES = {"ragged_3f": (2, 12, 3 * 197, 13, 2),
                 "flagship": (16, 12, 8 * 197, 32, 16),
                 "git_base_16f": (8, 12, 16 * 197, 32, 2),
                 "vitl16": (8, 12, 16 * 257, 32, 2)}
+# the main paths' shapes (GIT-base training, the vitl16 task loop): only
+# these take the profiler windows of K2's reduction alone and of K1
+SPLIT_MAIN = ("flagship", "vitl16")
 # GIT with ViT-L/14 (git-large presets: 24 x 1024 vision, 6 x 768 text,
 # vocab 30522), 16 frames of 224x224, text length 32: S = 16*257 + 32
 VITL16_CFG = {"model": {"pretrained_model": "microsoft/git-large-msrvtt-qa",
@@ -1319,9 +1354,12 @@ def git_flash_bwd_part_bounds(num_img, text_mask, h, dh):
 
 def phase_split_kernels(rate):
     """K3 (git_flash_bwd_dq + git_flash_bwd_dkv) vs its plain version and
-    vs K2 at each SPLIT_SHAPES entry and rates 0 and ``rate``, with dQ
+    vs K2, and K2 vs its own (fused) plain version, at each SPLIT_SHAPES
+    entry and rates 0 and ``rate``, with K3's gradients and K2's dK/dV
     bit-identical across two launches; K3, K2, plain and SDPA times and
-    the bounds.  Returns the rows and the crossover in S per rate."""
+    the bounds, and at the SPLIT_MAIN shapes K2's reduction alone and K1.
+    Returns the rows and the crossover in S per rate, a measurement
+    reported beside the route ``FUSED_BWD``."""
     rows = []
     for name, (b, h, num_img, l, rows_plain) in SPLIT_SHAPES.items():
         q, k, v, mask = _kernel_inputs(b, h, num_img, l, 64, seed=l + b)
@@ -1344,19 +1382,24 @@ def phase_split_kernels(rate):
             dk_again, dv_again = gf._launch_bwd_dkv(
                 q, k, v, lse, do, mask, num_img, delta, r, seed)
             fused = gf._launch_bwd(*args)
+            k2_rep = k2_repeat(fused, args)
             sub = [x[:rows_plain] for x in (q, k, v, o, lse, do, mask)]
             ref = gf.git_flash_backward_split_reference(*sub, num_img, r,
+                                                        seed)
+            ref_fused = gf.git_flash_backward_reference(*sub, num_img, r,
                                                         seed)
             torch.cuda.synchronize()
             got = (dq, dk, dv)
             vs_plain = {f"d{n}": _rel_err(g[:rows_plain], rf)
                         for n, g, rf in zip("qkv", got, ref)}
+            k2_vs_plain = {f"d{n}": _rel_err(g[:rows_plain], rf)
+                           for n, g, rf in zip("qkv", fused, ref_fused)}
             vs_k2 = {f"d{n}": _rel_err(g, f)
                      for n, g, f in zip("qkv", got, fused)}
             bit_equal = bool(torch.equal(dq, dq_again))
             dkv_bit_equal = bool(torch.equal(dk, dk_again)
                                  and torch.equal(dv, dv_again))
-            del ref, fused, dq_again, dk_again, dv_again, got
+            del ref, ref_fused, fused, dq_again, dk_again, dv_again, got
             row = {"phase": "split_kernels", "case": name, "rate": r,
                    "shape": shape, "attended_pairs": pairs,
                    "plain_rows": rows_plain,
@@ -1366,6 +1409,10 @@ def phase_split_kernels(rate):
                                          vs_plain.items()},
                    "max_abs_err_vs_k2": {n: e for n, (e, _) in
                                          vs_k2.items()},
+                   "k2_max_abs_err_vs_plain": {n: e for n, (e, _) in
+                                               k2_vs_plain.items()},
+                   "k2_max_abs_ref_plain": {n: m for n, (_, m) in
+                                            k2_vs_plain.items()},
                    "tol_rel": TOL_GRAD_REL, "dq_bit_identical": bit_equal,
                    "dkv_bit_identical": dkv_bit_equal,
                    "dq_ms": cuda_ms(lambda: gf._launch_bwd_dq(*args),
@@ -1393,16 +1440,30 @@ def phase_split_kernels(rate):
             row["device_kernels"] = {**dq_names, **dkv_names}
             row["k2_device_ms"], _ = device_window(
                 lambda: gf._launch_bwd(*args), reps=5)
+            row["k2_bound_share_device"] = bound[0] / row["k2_device_ms"]
+            row["k2"] = k2_rep
+            if name in SPLIT_MAIN:
+                row["k2_reduce_only_device_ms"] = device_window(
+                    lambda: gf._launch_bwd_reduce_only(*args), reps=5)[0]
+                # K1 at this rate, for the dropout hash's cost (K4)
+                row["fwd_device_ms"], _ = device_window(
+                    lambda: git_flash_attention(q, k, v, mask, num_img, r,
+                                                seed), reps=5)
             row["ms_per_1e9_pairs"] = {
                 "k3": row["kernel_ms"] / pairs * 1e9,
                 "k2": row["k2_ms"] / pairs * 1e9}
             if r == 0.0:
                 sdpa_yardstick(row, q, k, v, do, ok_mask, reps=5)
+                row["k2_factor"] = row["k2_device_ms"] / row["library_ms"]
             else:
                 row["library_ms"] = None
             emit(row)
             check(bit_equal and dkv_bit_equal,
                   f"K3's gradients differ between two launches: {row}")
+            check(k2_rep["dkv_bit_identical"],
+                  f"K2's dK/dV differ between two launches: {row}")
+            check(all(e <= TOL_GRAD_REL * m for e, m in k2_vs_plain.values()),
+                  f"K2 disagrees with its plain version: {row}")
             check(all(e <= TOL_GRAD_REL * m for e, m in vs_plain.values())
                   and all(e <= TOL_GRAD_REL * vs_plain[n][1]
                           for n, (e, _) in vs_k2.items()),
@@ -1423,26 +1484,30 @@ def phase_split_kernels(rate):
                                None)
         return out
 
-    # the route follows device time: the launchers' host time runs ahead
-    # of the card on an asynchronous backward
+    # device time decides: the launchers' host time runs ahead of the card
+    # on an asynchronous backward.  A measurement, not a gate: the route
+    # (FUSED_BWD) holds no length crossover, and "route_agrees" says
+    # whether this run's timings still put K2 ahead at every length
     cross = crossover("device_ms", "k2_device_ms")
     emit({"phase": "split_crossover", "measured_min_seq": cross,
           "measured_min_seq_events": crossover("kernel_ms", "k2_ms"),
-          "route_constants": {"0.0": gf._SPLIT_MIN_SEQ,
-                              str(rate): gf._SPLIT_MIN_SEQ_DROPOUT}})
+          "route": "K2" if gf.FUSED_BWD else "K3",
+          "route_agrees": all(c is None for c in cross.values())
+          if gf.FUSED_BWD else None})
     return rows, cross
 
 
 def _vitl16_grads(route, remat, inputs, seed):
     """Loss, launch counts and f32 gradients of one training forward/
-    backward of GIT with ViT-L/14, backward route ``route`` ("k2"/"k3")."""
+    backward of GIT with ViT-L/14, backward route ``route``: "k2" or "k3"
+    forced, or "routed" (``FUSED_BWD`` as it stands)."""
     cfg = dict(VITL16_CFG, remat=remat)
     _, model = build_model(cfg, dtype=torch.bfloat16, device="cuda",
                            generator=torch.Generator().manual_seed(seed))
     model.train()
-    saved = (gf.FUSED_BWD, gf._SPLIT_MIN_SEQ, gf._SPLIT_MIN_SEQ_DROPOUT)
-    gf.FUSED_BWD = route == "k2"
-    gf._SPLIT_MIN_SEQ = gf._SPLIT_MIN_SEQ_DROPOUT = None
+    saved = gf.FUSED_BWD
+    if route != "routed":
+        gf.FUSED_BWD = route == "k2"
     try:
         _build.reset_launch_counts()
         loss = model(*inputs, deterministic=False,
@@ -1451,7 +1516,7 @@ def _vitl16_grads(route, remat, inputs, seed):
         loss.backward()
         torch.cuda.synchronize()
     finally:
-        gf.FUSED_BWD, gf._SPLIT_MIN_SEQ, gf._SPLIT_MIN_SEQ_DROPOUT = saved
+        gf.FUSED_BWD = saved
     out = dict(loss=loss.item(), launches=dict(_build.launch_counts),
                grads={n: p.grad.float() for n, p in model.named_parameters()},
                qkv=[lyr.attention.qkv.weight.grad.abs().sum().item()
@@ -1464,7 +1529,8 @@ def _vitl16_grads(route, remat, inputs, seed):
 def phase_vitl16_grad_check():
     """GIT with ViT-L/14 at full width, 16 frames, S = 4144, remat on,
     dropout 0.1/0.1 with equal draws: the backward through K3 vs through
-    K2, and remat on vs off, loss and every parameter's gradient."""
+    K2, and remat on vs off on the routed backward, loss and every
+    parameter's gradient."""
     seed = VITL16["seed"]
     rng = np.random.default_rng(seed)
     b, t, l = VITL16["grad_check_rows"], VITL16["frames"], VITL16["text_len"]
@@ -1476,9 +1542,11 @@ def phase_vitl16_grad_check():
     px = torch.from_numpy(rng.standard_normal(
         (b, t, VITL16["img"], VITL16["img"], 3), dtype=np.float32)).cuda()
     inputs = (ids, mask, px, labels)
+    s_len = t * 257 + l
+    routed = "k2" if gf.FUSED_BWD else "k3"
     launches = {name: 0 for name in _build.COUNTERS}
     runs = {}
-    for key in (("k3", True), ("k2", True), ("k3", False)):
+    for key in (("k3", True), ("k2", True), ("routed", False)):
         runs[key] = _vitl16_grads(*key, inputs, seed)
         for name, n in runs[key]["launches"].items():
             launches[name] += n
@@ -1493,30 +1561,39 @@ def phase_vitl16_grad_check():
                 "grad_rel_err_max": rel[worst], "grad_rel_err_worst": worst,
                 "grad_rel_err_median": float(np.median(list(rel.values())))}
 
-    k3, k2, plain = runs["k3", True], runs["k2", True], runs["k3", False]
+    k3, k2 = runs["k3", True], runs["k2", True]
+    remat, plain = runs[routed, True], runs["routed", False]
     row = {"phase": "vitl16_grad_check", "rows": b, "frames": t,
-           "seq_len": t * 257 + l, "remat": True,
+           "seq_len": s_len, "remat": True, "routed": routed,
            "dropout": VITL16_CFG["model"]["hidden_dropout_prob"],
            "attention_dropout":
                VITL16_CFG["model"]["attention_probs_dropout_prob"],
            "loss_k3": k3["loss"], "loss_k2": k2["loss"],
-           "loss_k3_no_remat": plain["loss"],
+           "loss_routed_no_remat": plain["loss"],
            "k3_vs_k2": compare(k3, k2), "remat_vs_no_remat": compare(
-               k3, plain),
+               remat, plain),
            "tol_loss_rel": TOL_LOSS_REL, "tol_grad_rel": TOL_PARAM_GRAD_REL,
            "launches_k3_route": k3["launches"],
            "launches_k2_route": k2["launches"],
-           "text_qkv_grad_abs_sum_k3": k3["qkv"]}
+           "launches_routed_no_remat": plain["launches"],
+           "text_qkv_grad_abs_sum_k3": k3["qkv"],
+           "text_qkv_grad_abs_sum_k2": k2["qkv"]}
     emit(row)
     n_layers = len(k3["qkv"])
+    route_bwd = bwd_kernels()
     check(all(k3["launches"][n] == n_layers for n in
               ("git_flash_fwd", "git_flash_bwd_dq", "git_flash_bwd_dkv"))
           and k3["launches"]["git_flash_bwd"] == 0
           and k2["launches"]["git_flash_bwd"] == n_layers
-          and k2["launches"]["git_flash_bwd_dq"] == 0,
-          f"the routes did not launch K3 / K2 once a layer: {row}")
-    check(all(x > 0 for x in k3["qkv"]),
-          "a text layer's qkv.weight got no gradient through K3")
+          and k2["launches"]["git_flash_bwd_dq"] == 0
+          and all(plain["launches"][n] == n_layers for n in route_bwd)
+          and all(plain["launches"][n] == 0 for n in
+                  ("git_flash_bwd", "git_flash_bwd_dq", "git_flash_bwd_dkv")
+                  if n not in route_bwd),
+          f"the routes did not launch K3 / K2 / {route_bwd} once a layer: "
+          f"{row}")
+    check(all(x > 0 for x in k3["qkv"] + k2["qkv"]),
+          "a text layer's qkv.weight got no gradient through K3 or K2")
     for what in ("k3_vs_k2", "remat_vs_no_remat"):
         check(row[what]["loss_rel_err"] <= TOL_LOSS_REL
               and row[what]["grad_rel_err_max"] <= TOL_PARAM_GRAD_REL,
@@ -1666,8 +1743,7 @@ def phase_task_loop():
            "config": "configs/msvd_qa_base.json + " + json.dumps(
                {k: v for k, v in TASK["overrides"].items() if k != "model"}),
            "seq_len": s_len, "frames": TASK["stored_frames"],
-           "backward_route": bwd_kernels(s_len, TASK["overrides"]["model"][
-               "attention_probs_dropout_prob"]),
+           "backward_route": bwd_kernels(),
            "updates": result["global_step"], "setup_s": setup_s,
            "wall_s": wall, "update_s": step_s,
            "ms_per_update": float(np.mean(steady)) * 1e3,
@@ -1688,8 +1764,7 @@ def phase_task_loop():
           f"task loop: snapshots {ckpts}, restore {restore}")
     check("overall_acc" in result["val"] and "overall_acc" in result["test"],
           "task loop: a final score dict is missing")
-    route = bwd_kernels(s_len, TASK["overrides"]["model"][
-        "attention_probs_dropout_prob"])
+    route = bwd_kernels()
     check(all(launches[n] > 0 for n in
               ("git_flash_fwd", _build.HASH_DROPOUT) + route),
           f"task loop: a kernel of its route was not launched: {launches}")
@@ -1750,15 +1825,14 @@ def main() -> int:
                for name in KERNELS}
     needed = {"git_serve": ("git_flash_fwd",),
               "git_train": ("git_flash_fwd", _build.HASH_DROPOUT)
-              + bwd_kernels(TRAIN["frames"] * tpf + TRAIN["max_seq_len"],
-                            rate),
+              + bwd_kernels(),
               "blip_serve": ("flash_fwd",),
               "blip_train": ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"),
               "vitl16_grad_check": ("git_flash_fwd", "git_flash_bwd_dq",
                                     "git_flash_bwd_dkv",
                                     _build.HASH_DROPOUT),
               "task_loop": ("git_flash_fwd", _build.HASH_DROPOUT)
-              + bwd_kernels(task_row["seq_len"], rate)}
+              + bwd_kernels()}
     check(all(by_path[k][path] > 0 for path, ks in needed.items()
               for k in ks),
           f"a kernel of a path was not launched: {by_path}")
@@ -1766,12 +1840,40 @@ def main() -> int:
     serve, main_t = kernel_rows[0], train_rows[0]
     fwd, bwd0, bwd = main_t["fwd"], main_t["bwd_0.0"], main_t[f"bwd_{rate}"]
     ragged = train_rows[1]
+    # K4: K1 plus the routed backward at the rate minus at rate 0, at the
+    # training shape and at vitl16; the hash runs once a pair in K1 and K2,
+    # twice in K3
+    def split_row(case, r):
+        return next(x for x in split_rows
+                    if x["case"] == case and x["rate"] == r)
+
+    fused = gf.FUSED_BWD
+
+    def routed_bwd(case, r, key):
+        k2_key = {"kernel_ms": "k2_ms", "device_ms": "k2_device_ms"}[key]
+        return split_row(case, r)[k2_key if fused else key]
+
     hash_ms = ((fwd["kernel_ms"] - fwd["kernel_ms_rate0"])
-               + (bwd["kernel_ms"] - bwd0["kernel_ms"]))
+               + (bwd["kernel_ms"] - bwd0["kernel_ms"] if fused else
+                  routed_bwd("flagship", rate, "kernel_ms")
+                  - routed_bwd("flagship", 0.0, "kernel_ms")))
     hash_device_ms = ((fwd["device_ms"] - fwd["device_ms_rate0"])
-                      + (bwd["device_ms"] - bwd0["device_ms"]))
-    hash_bound = roofline(2 * HASH_OPS_PER_PAIR * main_t["pairs"], 4,
-                          PEAK_SCALAR_OPS)
+                      + (bwd["device_ms"] - bwd0["device_ms"]
+                         if fused else
+                         routed_bwd("flagship", rate, "device_ms")
+                         - routed_bwd("flagship", 0.0, "device_ms")))
+    hash_bound = roofline((2 if fused else 3) * HASH_OPS_PER_PAIR
+                          * main_t["pairs"], 4, PEAK_SCALAR_OPS)
+    hash_vitl16 = {
+        "device_ms": (split_row("vitl16", rate)["fwd_device_ms"]
+                      - split_row("vitl16", 0.0)["fwd_device_ms"]
+                      + routed_bwd("vitl16", rate, "device_ms")
+                      - routed_bwd("vitl16", 0.0, "device_ms")),
+        "bound_ms": roofline((2 if fused else 3) * HASH_OPS_PER_PAIR
+                             * split_row("vitl16", rate)["attended_pairs"],
+                             4, PEAK_SCALAR_OPS)[0],
+        "backward": "K2" if fused else "K3"}
+    k2_v16, k2_v16_0 = split_row("vitl16", rate), split_row("vitl16", 0.0)
     grad_err = max(max(r["max_abs_err"].values())
                    for t in train_rows for r in (t["bwd_0.0"],
                                                  t[f"bwd_{rate}"]))
@@ -1894,7 +1996,35 @@ def main() -> int:
         "at": f"training shape, rate {rate}; library (SDPA) and factor at "
               f"rate 0",
         "ms_rate0": bwd0["kernel_ms"], "device_ms_rate0": bwd0["device_ms"],
+        "bound_share_device_rate0": bwd0["bound_share_device"],
         "plain_ms_rate0": bwd0["plain_ms"],
+        "reduce_only_device_ms": bwd["reduce_only_device_ms"],
+        "reduce_only_device_ms_rate0": bwd0["reduce_only_device_ms"],
+        "dkv_bit_identical": all(r["dkv_bit_identical"] for r in
+                                 [t[f"bwd_{x}"] for t in train_rows
+                                  for x in (0.0, rate)]
+                                 + [x["k2"] for x in split_rows]),
+        "dq_rerun_rel_diff_max": max(
+            [t[f"bwd_{x}"]["dq_rerun_rel_diff"] for t in train_rows
+             for x in (0.0, rate)]
+            + [x["k2"]["dq_rerun_rel_diff"] for x in split_rows]),
+        "vitl16": {"max_abs_err_vs_plain": k2_v16["k2_max_abs_err_vs_plain"],
+                   "max_abs_err_vs_plain_rate0":
+                       k2_v16_0["k2_max_abs_err_vs_plain"],
+                   "device_ms": k2_v16["k2_device_ms"],
+                   "device_ms_rate0": k2_v16_0["k2_device_ms"],
+                   "reduce_only_device_ms": k2_v16["k2_reduce_only_device_ms"],
+                   "reduce_only_device_ms_rate0":
+                       k2_v16_0["k2_reduce_only_device_ms"],
+                   "bound_ms": k2_v16["bound_ms"],
+                   "bound_share_device": k2_v16["k2_bound_share_device"],
+                   "bound_share_device_rate0":
+                       k2_v16_0["k2_bound_share_device"],
+                   "library_ms": k2_v16_0["library_ms"],
+                   "factor_device": k2_v16_0["k2_factor"],
+                   "k3_device_ms": k2_v16["device_ms"],
+                   "k3_device_ms_rate0": k2_v16_0["device_ms"]},
+        "crossover_min_seq": crossover,
         "ragged_ms": ragged[f"bwd_{rate}"]["kernel_ms"],
         "ptxas": ptxas.get("git_flash_bwd", {}), "card": smi},
         k3_entry("dq", "git_flash_bwd_dq",
@@ -1911,7 +2041,10 @@ def main() -> int:
         "plain_ms": main_t["hash_plain_ms"],
         "bound_ms": hash_bound[0], "bound_by": hash_bound[1],
         "library_ms": None,
-        "at": "training shape: K1 + K2 time at the rate minus at rate 0",
+        "at": f"training shape: K1 + the routed backward "
+              f"({'K2' if fused else 'K3'}) at the rate minus at "
+              f"rate 0",
+        "vitl16": hash_vitl16,
         "card": smi}, {
         "name": "flash_fwd", "route": "cuda",
         "source": "sasvqa_torch/ops/csrc/flash_fwd.cu",

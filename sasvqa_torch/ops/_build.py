@@ -15,7 +15,8 @@ launches that ran the in-kernel dropout hash (``rate`` > 0): K1, K2, and
 each of K3's two kernels.  The libraries ``git_flash_bwd_split`` (K3)
 and ``flash_bwd`` (K6) hold two kernels each, counted apart as
 ``git_flash_bwd_dq``/``git_flash_bwd_dkv`` and
-``flash_bwd_dq``/``flash_bwd_dkv``.
+``flash_bwd_dq``/``flash_bwd_dkv``; ``git_flash_bwd`` (K2) also holds
+its reduction-only instrument, which no counter counts.
 """
 
 from __future__ import annotations

@@ -1,11 +1,13 @@
 // The Hopper (sm_90a) flash-attention backward mainloop shared by K6
-// (flash_bwd.cu: no mask, or an additive bias) and K3
-// (git_flash_bwd_split.cu: the GIT mask, with the K4 dropout hash at
-// rate > 0).  Two programs, no atomics: a dQ program per 64-query tile
-// that streams key tiles, and a dK/dV program per 64-key tile that
-// streams query tiles; each .cu file only fills BwdParams and picks the
-// mask policy.  D = rowsum(dO * O) comes from rowsum_product_kernel
-// (mma_common.cuh), launched before the dQ program.
+// (flash_bwd.cu: no mask, or an additive bias), K3 (git_flash_bwd_split.cu:
+// the GIT mask, with the K4 dropout hash at rate > 0) and K2
+// (git_flash_bwd.cu: the same, fused).  Three programs: a dQ program per
+// 64-query tile that streams key tiles and a dK/dV program per 64-key tile
+// that streams query tiles (the split backward, no atomics), and a fused
+// program per 128-key tile that streams query tiles and adds each query
+// tile's dQ into an f32 workspace by TMA reductions.  Each .cu file only
+// fills BwdParams and picks the mask policy.  D = rowsum(dO * O) comes from
+// rowsum_product_kernel (mma_common.cuh), launched first.
 //
 // Per (b, h), query row r and key c, with the forward's LSE:
 //   p   = exp(s[r, c] - LSE[r])    s = (q_r . k_c) * scale + mask(r, c);
@@ -16,17 +18,18 @@
 //   keep = the K4 factor {0, 1/(1-rate)} (1 without dropout)
 //   dS  = bf16(p * (dP * keep - D) * ds_scale)    dP = dO . v_c
 //   dQ  = out_scale * dS K,  dK = out_scale * dS^T Q,  dV = bf16(p*keep)^T dO
-// with f32 accumulation, each gradient written once in bf16.  K6 folds the
+// with f32 accumulation, dK and dV written once in bf16 (the split dQ too;
+// the fused dQ is an f32 sum the launcher casts).  K6 and K2 fold the
 // scale into dS (ds_scale = scale, out_scale = 1), K3 applies it to the
 // f32 sums as the TPU split kernels do (ds_scale = 1, out_scale = scale);
 // with Dh = 64 the scale is a power of two and the two round alike.
 //
-// Design, from the forward's parts (sm90_common.cuh): a CTA is one
-// consumer warpgroup and one producer warp; 64-row tiles arrive by TMA
-// (128-byte swizzle) through a 4-stage ring of full/empty mbarriers; all
+// Design, from the forward's parts (sm90_common.cuh): 64-row tiles arrive
+// by TMA (128-byte swizzle) through a 4-stage ring of mbarriers; all
 // products are wgmma.  A streamed tile serves as a K-major operand (its
 // Dh contracted) and as an MN-major operand (its rows contracted) through
-// two descriptors on one swizzled buffer, as V is read in the forward.
+// two descriptors on one swizzled buffer, as V is read in the forward.  A
+// split CTA is one consumer warpgroup and one producer warp.
 //
 // dQ program: Q and dO load once; K/V tiles stream over the key tiles of
 // the forward's plan (kGitMask: none past max(num_img, last row of the
@@ -46,14 +49,34 @@
 // key tile of text keys at its own first row (no earlier row attends it)
 // and runs no mask code at all in a CTA whose keys lie below num_img.
 //
-// Both: a tile that needs no mask (kNoMask: wholly below Lk; kGitMask:
-// wholly below num_img) runs no mask code; a last streamed tile of at
-// most 16 rows (577 = 9 * 64 + 1) is computed 16 wide.  Two CTAs share an
-// SM (83 KB of shared memory each), so one CTA's elementwise step and
-// hash run under the other's products.  Their 10 warps leave at most 168
-// registers a thread (an SM sub-partition's 16K registers hold three
-// warps), too few for the dK/dV program to keep S^T, dP^T, dK, dV (four
-// 64 x 64 f32 fragments) and the previous tile's bf16 operands at once.
+// Fused program (K2): the dK/dV program's step, run by two consumer
+// warpgroups on the two 64-key halves of a 128-key tile over the same
+// streamed query tiles.  Each also stores its dS^T in bf16 to a swizzled
+// shared tile; after a named barrier one warpgroup, alternately, computes
+// dQ = dS.K over all 128 keys (wgmma SS, dS^T and K both read MN-major),
+// behind which the next query tile's S^T and dP^T run; once it completes
+// the f32 tile goes to shared memory and one thread adds it into the
+// workspace by two TMA reductions (cp.reduce.async.bulk.tensor), which
+// run under the next tiles' products.  Summing 128 keys before each
+// reduction halves the workspace traffic of a 64-key CTA.  One CTA an SM
+// (163 KB of shared memory).  It has no producer warp: a ninth warp would
+// cap registers at 168 a thread (three warps a sub-partition), too few to
+// keep the dQ product in flight beside S^T, dP^T, dK and dV, and ptxas
+// keeps that cap under setmaxnreg; with 8 warps the cap is 255.  Warp 0
+// refills a stage once both warpgroups are past the barrier that ends its
+// step: Q and dO by TMA, the LSE and D rows by cp.async, both arriving on
+// the stage's mbarrier.  The order of the f32 additions varies from run to
+// run, so dQ does (dK, dV do not).
+//
+// All: a tile that needs no mask (kNoMask: wholly below Lk; kGitMask:
+// wholly below num_img) runs no mask code.  The split programs compute a
+// last streamed tile of at most 16 rows (577 = 9 * 64 + 1) 16 wide.  Two
+// split CTAs share an SM (83 KB of shared memory each), so one CTA's
+// elementwise step and hash run under the other's products.  Their 10
+// warps leave at most 168 registers a thread (an SM sub-partition's 16K
+// registers hold three warps), too few for the dK/dV program to keep S^T,
+// dP^T, dK, dV (four 64 x 64 f32 fragments) and the previous tile's bf16
+// operands at once.
 #pragma once
 
 #include "git_flash_common.cuh"
@@ -75,9 +98,28 @@ constexpr int DQ_SMEM_BYTES = DQ_BAR_OFF + 8 * (1 + 2 * BWD_STAGES) + 1024;
 constexpr int DKV_ROWS_OFF = (2 + 2 * BWD_STAGES) * TILE_BYTES;
 constexpr int DKV_BAR_OFF = DKV_ROWS_OFF + BWD_STAGES * 2 * BWD_BM * 4;
 constexpr int DKV_SMEM_BYTES = DKV_BAR_OFF + 8 * (1 + 2 * BWD_STAGES) + 1024;
+// fused program: a consumer warpgroup a 64-key half, one CTA an SM
+constexpr int FUSED_BN = 2 * TILE_ROWS;  // keys a fused CTA
+// two consumer warpgroups and no producer warp: 8 warps, two an SM
+// sub-partition, leave 255 registers a thread (a ninth warp would cap
+// them at 168)
+constexpr int FUSED_THREADS = 256;
+// ptxas (CUDA 12.9) crashes on this program from a cap of 200 registers;
+// it takes 176-184 of these 184
+constexpr int FUSED_MAX_REGS = 184;
+// K and V (128 rows each), the Q and dO rings, dS^T of two query tiles
+// (two key halves each), an f32 dQ tile a warpgroup (two 64 x 32 boxes),
+// each stage's LSE and D rows, then full_kv, full[STAGES]
+constexpr int FUSED_DS_OFF = (4 + 2 * BWD_STAGES) * TILE_BYTES;
+constexpr int FUSED_DQ_OFF = FUSED_DS_OFF + 4 * TILE_BYTES;
+constexpr int FUSED_ROWS_OFF = FUSED_DQ_OFF + 4 * TILE_BYTES;
+constexpr int FUSED_BAR_OFF = FUSED_ROWS_OFF + BWD_STAGES * 2 * BWD_BM * 4;
+constexpr int FUSED_SMEM_BYTES =
+    FUSED_BAR_OFF + 8 * (1 + BWD_STAGES) + 1024;
 
 struct BwdParams {
   CUtensorMap tm_q, tm_k, tm_v, tm_do;
+  CUtensorMap tm_dq;   // fused: the f32 (B, H, Lq, Dh) dQ workspace
   // gradients, element strides of (B, H, L, Dh) views
   __nv_bfloat16* dq;
   long long dq_sb, dq_sh, dq_ss;
@@ -238,8 +280,9 @@ struct DkvCtx {
 
 // Phase 1 of a query tile in the dK/dV program: P^T in s from S^T in s
 // (columns: queries q0 + 8j + 2t + {0, 1}, whose base-2 LSE is staged at
-// slse); with dropout, bit e of the result is the keep of element e
-template <int MASK, bool DROPOUT, int NS>
+// slse, or their natural LSE when RAW_LSE); with dropout, bit e of the
+// result is the keep of element e
+template <int MASK, bool DROPOUT, int NS, bool RAW_LSE = false>
 __device__ __forceinline__ uint32_t dkv_probs(float (&s)[NS],
                                               const BwdParams& p,
                                               const DkvCtx& x, bool masked,
@@ -252,7 +295,8 @@ __device__ __forceinline__ uint32_t dkv_probs(float (&s)[NS],
 #pragma unroll
     for (int cb = 0; cb < 2; ++cb) {
       const int q = q0 + j * 8 + 2 * x.t + cb;
-      const float lse2 = cb ? l2.y : l2.x;
+      const float lse2 = RAW_LSE ? lse_log2(cb ? l2.y : l2.x)
+                                 : (cb ? l2.y : l2.x);
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
         const int e = 4 * j + 2 * i + cb;
@@ -607,16 +651,288 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ BwdParams p) {
              x.t, 1.f);
 }
 
+// ---- the fused program (K2) -------------------------------------------------
+
+// this warpgroup's dS^T (its 64 keys x 64 queries, the bf16 A-fragments of
+// dK) into the 128-byte-swizzled tile at `dst`, a row a key: chunk j of
+// row r lies at chunk j ^ (r % 8), as a TMA copy would have put it
+__device__ __forceinline__ void store_ds_tile(uint32_t dst,
+                                              const uint32_t (&dsa)[4][4],
+                                              int wl, int lane) {
+  const int g = lane / 4;
+  const int t = lane % 4;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = wl * 16 + g + 8 * i;  // r % 8 == g
+      st_shared_u32(dst + r * ROW_BYTES + ((j ^ g) << 4) + 4 * t,
+                    dsa[j / 2][2 * (j % 2) + i]);
+    }
+  }
+}
+
+// the f32 dQ fragment (query rows 16 wl + g + 8i, columns 8j + 2t) into
+// two 64 x 32 f32 tiles at `dst`, 128-byte swizzled as encode_f32_map's
+// boxes (32 floats a 128-byte row)
+__device__ __forceinline__ void store_dq_tile(uint32_t dst,
+                                              const float (&acc)[32],
+                                              int wl, int lane) {
+  const int g = lane / 4;
+  const int t = lane % 4;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int chunk = 2 * (j % 4) + t / 2;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = wl * 16 + g + 8 * i;
+      st_shared_f32x2(dst + (j / 4) * TILE_BYTES + r * ROW_BYTES +
+                          ((chunk ^ g) << 4) + 8 * (t % 2),
+                      acc[4 * j + 2 * i], acc[4 * j + 2 * i + 1]);
+    }
+  }
+}
+
+// dQ (64 queries x Dh, f32) = dS . K over the CTA's 128 keys: A = the two
+// dS^T tiles at `ds` read MN-major, B = the two K tiles at `sk` read
+// MN-major; both regions run on contiguously, 2048 B a 16-key k-step
+__device__ __forceinline__ void issue_dq_fused(float (&acc)[32], uint32_t ds,
+                                               uint32_t sk) {
+  const uint64_t da = mnmajor_desc(ds);
+  const uint64_t db = mnmajor_desc(sk);
+  wgmma_ss_n64_tt<false>(acc, da, db);
+#pragma unroll
+  for (int kk = 1; kk < FUSED_BN / 16; ++kk) {
+    const uint64_t step = (kk * 16 * ROW_BYTES) >> 4;
+    wgmma_ss_n64_tt<true>(acc, da + step, db + step);
+  }
+}
+
+// one warpgroup's dQ tile of query rows [q0, q0 + 64) into the workspace:
+// shared staging tile `sdq` (free once this warpgroup's last reduction has
+// read it), then two TMA reductions issued by the warpgroup's first thread
+__device__ __forceinline__ void reduce_dq(const BwdParams& p, uint32_t sdq,
+                                          const float (&acc)[32], int q0,
+                                          int h, int b, int wg, int wl,
+                                          int lane) {
+  const bool leader = wl == 0 && lane == 0;
+  if (leader) bulk_wait_read<0>();
+  named_sync(2 + wg, 128);
+  store_dq_tile(sdq, acc, wl, lane);
+  fence_proxy_async();
+  named_sync(2 + wg, 128);
+  if (leader) {
+    tma_reduce_add(&p.tm_dq, sdq, 0, q0, h, b);
+    tma_reduce_add(&p.tm_dq, sdq + TILE_BYTES, DH / 2, q0, h, b);
+    bulk_commit();
+  }
+}
+
+// the loads of query tile `it` into its stage, by the 32 lanes of warp 0:
+// lane 0 copies Q and dO by TMA, every lane two LSE and two D rows by
+// cp.async (zeros past Lq, which add nothing: Q and dO are zero there)
+__device__ __forceinline__ void fused_load_tile(const BwdParams& p, int it,
+                                                int q_begin, int bh, int b,
+                                                int h, int lane,
+                                                uint32_t base) {
+  const int st = it % BWD_STAGES;
+  const int q0 = q_begin + it * BWD_BM;
+  const uint32_t full = base + FUSED_BAR_OFF + 8 + 8 * st;
+  const uint32_t rows = base + FUSED_ROWS_OFF + st * 2 * BWD_BM * 4;
+#pragma unroll
+  for (int r = lane; r < BWD_BM; r += 32) {
+    const int q = q0 + r;
+    const bool in = q < p.Lq;
+    const long long at = static_cast<long long>(bh) * p.Lq + (in ? q : 0);
+    cp_async_4(rows + 4 * r, p.lse + at, in);
+    cp_async_4(rows + 4 * (BWD_BM + r), p.delta + at, in);
+  }
+  cp_async_arrive_noinc(full);
+  if (lane == 0) {
+    const uint32_t sq = base + (4 + st) * TILE_BYTES;
+    mbar_expect_tx(full, 2 * TILE_BYTES);
+    tma_load(sq, &p.tm_q, full, q0, h, b);
+    tma_load(sq + BWD_STAGES * TILE_BYTES, &p.tm_do, full, q0, h, b);
+  }
+}
+
+// PRODUCTS false compiles the products and the elementwise work out and
+// reduces a zero tile in their place: the ring, the staging and the dQ
+// reductions alone, to measure what the reduction costs
+template <int MASK, bool DROPOUT, bool PRODUCTS>
+__global__ void __maxnreg__(FUSED_MAX_REGS)
+flash_bwd_fused_sm90_kernel(const __grid_constant__ BwdParams p) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sk = base;  // 128 rows: one tile a key half
+  const uint32_t sv = base + 2 * TILE_BYTES;
+  const uint32_t sq0 = base + 4 * TILE_BYTES;
+  const uint32_t sdo0 = sq0 + BWD_STAGES * TILE_BYTES;
+  const uint32_t sds0 = base + FUSED_DS_OFF;  // [query tile parity][half]
+  const uint32_t sdq0 = base + FUSED_DQ_OFF;  // [warpgroup][column half]
+  // each stage's natural LSE and D rows, through a generic pointer
+  const float* const srows = reinterpret_cast<const float*>(
+      smem_raw + (base - smem_u32(smem_raw)) + FUSED_ROWS_OFF);
+  const uint32_t full_kv = base + FUSED_BAR_OFF;
+  const uint32_t full0 = full_kv + 8;
+
+  const int k0 = blockIdx.x * FUSED_BN;
+  const int bh = blockIdx.y;
+  const int b = bh / p.H;
+  const int h = bh % p.H;
+  const int q_begin = bwd_q_begin<MASK>(p, k0);
+  const int n_tiles = (p.Lq - q_begin + BWD_BM - 1) / BWD_BM;
+
+  if (threadIdx.x == 0) {
+    mbar_init(full_kv, 1);
+    // warp 0's 32 cp.async arrivals and lane 0's expect_tx
+    for (int s = 0; s < BWD_STAGES; ++s) mbar_init(full0 + 8 * s, 33);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // broadcast from lane 0, so the compiler knows it is warp-uniform
+  const int warp_id = __shfl_sync(0xffffffffu,
+                                  static_cast<int>(threadIdx.x / 32), 0);
+  const int lane = threadIdx.x % 32;
+  if (warp_id == 0) {
+    // K and V once, and the ring's first tiles; a tile's stage is loaded
+    // again once both warpgroups are past the barrier that ends its step
+    if (lane == 0) {
+      mbar_expect_tx(full_kv, 4 * TILE_BYTES);
+      tma_load(sk, &p.tm_k, full_kv, k0, h, b);
+      tma_load(sk + TILE_BYTES, &p.tm_k, full_kv, k0 + TILE_ROWS, h, b);
+      tma_load(sv, &p.tm_v, full_kv, k0, h, b);
+      tma_load(sv + TILE_BYTES, &p.tm_v, full_kv, k0 + TILE_ROWS, h, b);
+    }
+    for (int it = 0; it < min(n_tiles, BWD_STAGES); ++it) {
+      fused_load_tile(p, it, q_begin, bh, b, h, lane, base);
+    }
+  }
+
+  // ---- two consumer warpgroups: warpgroup wg owns keys
+  // [k0 + 64 wg, k0 + 64 wg + 64), 16 a warp ----
+  const int wg = warp_id / 4;
+  const int wl = warp_id % 4;
+  DkvCtx x;
+  x.t = lane % 4;
+  x.bh = bh;
+  x.seed = DROPOUT ? static_cast<uint32_t>(p.seed_ptr[0]) : 0u;
+  const int32_t* tm = MASK == kGitMask
+                          ? p.text_mask + static_cast<long long>(b) * p.L
+                          : nullptr;
+  const int kh = k0 + wg * TILE_ROWS;  // this warpgroup's first key
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int c = kh + wl * 16 + lane / 4 + 8 * i;
+    x.key[i] = c;
+    x.col_ok[i] = (MASK != kGitMask || c < p.num_img)
+                      ? 1
+                      : (c < p.Lk && __ldg(tm + c - p.num_img));
+    x.bcol[i] = (MASK == kBias && c < p.Lk)
+                    ? p.bias + b * p.b_sb + h * p.b_sh + c * p.b_sk
+                    : nullptr;
+  }
+  const bool masked = MASK == kGitMask && kh + TILE_ROWS > p.num_img;
+  const uint32_t sk_w = sk + wg * TILE_BYTES;
+  const uint32_t sv_w = sv + wg * TILE_BYTES;
+  const uint32_t sdq = sdq0 + wg * 2 * TILE_BYTES;
+
+  float dk_acc[32], dv_acc[32], dq_acc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dk_acc[i] = dv_acc[i] = dq_acc[i] = 0.f;
+
+  // the dQ product of query tile it - 1 (both halves of its dS^T stored
+  // before the barrier that ended step it - 1) runs after step it's dV and
+  // dK products, in turn by warpgroup (it - 1) % 2, under the other
+  // warpgroup's work.  Every wgmma completes inside its step and dS^T is
+  // stored before the products that read its registers: ptxas serializes
+  // the wgmma and spills otherwise, and crashes from a cap of 200
+  // registers
+  mbar_wait(full_kv, 0);
+  for (int it = 0; it <= n_tiles; ++it) {
+    const int st = it % BWD_STAGES;
+    const int q0 = q_begin + it * BWD_BM;
+    const bool dq_turn = it > 0 && wg == (it - 1) % 2;
+    const uint32_t sds_prev = sds0 + ((it + 1) % 2) * 2 * TILE_BYTES;
+    if (it == n_tiles) {  // the last tile's dQ
+      if (dq_turn) {
+        if (PRODUCTS) {
+          wg_fence();
+          issue_dq_fused(dq_acc, sds_prev, sk);
+          wg_commit();
+          wg_wait<0>();
+          pin(dq_acc);
+        }
+        reduce_dq(p, sdq, dq_acc, q0 - BWD_BM, h, b, wg, wl, lane);
+      }
+      break;
+    }
+    mbar_wait(full0 + 8 * st, (it / BWD_STAGES) & 1);
+    if constexpr (PRODUCTS) {
+      const float* srow = srows + st * 2 * BWD_BM;
+      const uint32_t sq = sq0 + st * TILE_BYTES;
+      const uint32_t sdo = sdo0 + st * TILE_BYTES;
+      float s[32], dp[32];
+      pin(dk_acc);
+      pin(dv_acc);
+      wg_fence();
+      issue_ss(s, sk_w, sq);  // S^T = K Q^T
+      wg_commit();
+      issue_ss(dp, sv_w, sdo);  // dP^T = V dO^T
+      wg_commit();
+      wg_wait<1>();
+      pin(s);
+      const uint32_t keep =
+          dkv_probs<MASK, DROPOUT, 32, true>(s, p, x, masked, q0, srow);
+      wg_wait<0>();
+      pin(dp);
+      dkv_grads<DROPOUT>(s, dp, p, x, keep, srow + BWD_BM);
+      uint32_t pa[4][4], dsa[4][4];
+      pack_a(pa, s);
+      pack_a(dsa, dp);
+      store_ds_tile(sds0 + (it % 2) * 2 * TILE_BYTES + wg * TILE_BYTES, dsa,
+                    wl, lane);
+      fence_proxy_async();
+      wg_fence();
+      issue_rs(dv_acc, pa, sdo);  // dV += (P^T keep) dO
+      issue_rs(dk_acc, dsa, sq);  // dK += dS^T Q
+      wg_commit();
+      wg_wait<0>();
+      pin(dk_acc);
+      pin(dv_acc);
+      if (dq_turn) {
+        wg_fence();
+        issue_dq_fused(dq_acc, sds_prev, sk);
+        wg_commit();
+        wg_wait<0>();
+        pin(dq_acc);
+      }
+    }
+    if (dq_turn) reduce_dq(p, sdq, dq_acc, q0 - BWD_BM, h, b, wg, wl, lane);
+    // both halves of this tile's dS^T are stored, and neither warpgroup
+    // reads its stage again
+    named_sync(1, FUSED_THREADS);
+    if (warp_id == 0 && it + BWD_STAGES < n_tiles) {
+      fused_load_tile(p, it + BWD_STAGES, q_begin, bh, b, h, lane, base);
+    }
+  }
+
+  store_rows(p.dk + b * p.dk_sb + h * p.dk_sh, p.dk_ss, dk_acc, x.key, p.Lk,
+             x.t, p.out_scale);
+  store_rows(p.dv + b * p.dv_sb + h * p.dv_sh, p.dv_ss, dv_acc, x.key, p.Lk,
+             x.t, 1.f);
+  // shared memory stays until the reductions are done with it
+  if (wl == 0 && lane == 0) bulk_wait<0>();
+}
+
 // ---- host side ------------------------------------------------------------
 
 // Encodes the q/k/v/dO maps into `p` (element strides `st`: (sb, sh, ss)
-// of q, k, v, dO in turn) and launches the dQ program (DKV false) or the
-// dK/dV program on `stream`.  Returns 0, a cudaError_t, or an ERR_TMA_*
-// code; nothing is launched on an error.
-template <bool DKV, int MASK, bool DROPOUT>
-int launch_flash_bwd(BwdParams& p, const void* q, const void* k,
-                     const void* v, const void* dout, int B,
-                     const long long (&st)[12], cudaStream_t stream) {
+// of q, k, v, dO in turn); 0 or an ERR_TMA_* code
+int encode_bwd_maps(BwdParams& p, const void* q, const void* k,
+                    const void* v, const void* dout, int B,
+                    const long long (&st)[12]) {
   int err = encode_qkv_map(&p.tm_q, q, p.Lq, p.H, B, st[0], st[1], st[2],
                            TILE_ROWS);
   if (!err) {
@@ -631,17 +947,56 @@ int launch_flash_bwd(BwdParams& p, const void* q, const void* k,
     err = encode_qkv_map(&p.tm_do, dout, p.Lq, p.H, B, st[9], st[10],
                          st[11], TILE_ROWS);
   }
-  if (err) return err;
-  auto kernel = DKV ? flash_bwd_dkv_sm90_kernel<MASK, DROPOUT>
-                    : flash_bwd_dq_sm90_kernel<MASK, DROPOUT>;
-  const int smem = DKV ? DKV_SMEM_BYTES : DQ_SMEM_BYTES;
+  return err;
+}
+
+template <typename Kernel>
+int launch_bwd_kernel(Kernel kernel, const BwdParams& p, dim3 grid,
+                      int threads, int smem, cudaStream_t stream) {
   const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (attr != cudaSuccess) return static_cast<int>(attr);
+  kernel<<<grid, threads, smem, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Encodes the maps and launches the dQ program (DKV false) or the dK/dV
+// program on `stream`.  Returns 0, a cudaError_t, or an ERR_TMA_* code;
+// nothing is launched on an error.
+template <bool DKV, int MASK, bool DROPOUT>
+int launch_flash_bwd(BwdParams& p, const void* q, const void* k,
+                     const void* v, const void* dout, int B,
+                     const long long (&st)[12], cudaStream_t stream) {
+  const int err = encode_bwd_maps(p, q, k, v, dout, B, st);
+  if (err) return err;
   const dim3 grid(((DKV ? p.Lk : p.Lq) + TILE_ROWS - 1) / TILE_ROWS,
                   B * p.H);
-  kernel<<<grid, BWD_THREADS, smem, stream>>>(p);
-  return static_cast<int>(cudaGetLastError());
+  if (DKV) {
+    return launch_bwd_kernel(flash_bwd_dkv_sm90_kernel<MASK, DROPOUT>, p,
+                             grid, BWD_THREADS, DKV_SMEM_BYTES, stream);
+  }
+  return launch_bwd_kernel(flash_bwd_dq_sm90_kernel<MASK, DROPOUT>, p, grid,
+                           BWD_THREADS, DQ_SMEM_BYTES, stream);
+}
+
+// The fused program: as launch_flash_bwd, with the map of the f32 dQ
+// workspace `dq` (element strides dq_st: sb, sh, ss), which must hold
+// zeros (or a sum to add to)
+template <int MASK, bool DROPOUT, bool PRODUCTS>
+int launch_flash_bwd_fused(BwdParams& p, const void* q, const void* k,
+                           const void* v, const void* dout, void* dq, int B,
+                           const long long (&st)[12],
+                           const long long (&dq_st)[3], cudaStream_t stream) {
+  int err = encode_bwd_maps(p, q, k, v, dout, B, st);
+  if (!err) {
+    err = encode_f32_map(&p.tm_dq, dq, p.Lq, p.H, B, dq_st[0], dq_st[1],
+                         dq_st[2], TILE_ROWS);
+  }
+  if (err) return err;
+  const dim3 grid((p.Lk + FUSED_BN - 1) / FUSED_BN, B * p.H);
+  return launch_bwd_kernel(
+      flash_bwd_fused_sm90_kernel<MASK, DROPOUT, PRODUCTS>, p, grid,
+      FUSED_THREADS, FUSED_SMEM_BYTES, stream);
 }
 
 // D = rowsum(dO * O) into `delta`, (B, H, Lq) f32, before the dQ program
@@ -656,6 +1011,29 @@ int launch_rowsum_product(const void* o, const void* dout, void* delta,
       static_cast<const __nv_bfloat16*>(dout), static_cast<float*>(delta), H,
       Lq, o_sb, o_sh, o_ss, do_sb, do_sh, do_ss);
   return static_cast<int>(cudaGetLastError());
+}
+
+// the GIT-mask parameters of K2 and K3 (Lq == Lk == S = num_img + L)
+BwdParams git_params(const void* lse, const void* delta,
+                     const void* text_mask, const void* seed, int H, int S,
+                     int num_img, int L, float ds_scale, float out_scale,
+                     float scale, unsigned int thresh, float inv_keep) {
+  BwdParams p{};
+  p.lse = static_cast<const float*>(lse);
+  p.delta = static_cast<const float*>(delta);
+  p.H = H;
+  p.Lq = S;
+  p.Lk = S;
+  p.scale_log2 = scale * LOG2E;
+  p.ds_scale = ds_scale;
+  p.out_scale = out_scale;
+  p.text_mask = static_cast<const int32_t*>(text_mask);
+  p.num_img = num_img;
+  p.L = L;
+  p.seed_ptr = static_cast<const int32_t*>(seed);
+  p.thresh = thresh;
+  p.inv_keep = inv_keep;
+  return p;
 }
 
 }  // namespace

@@ -30,32 +30,6 @@
 
 #include "flash_bwd_sm90.cuh"
 
-namespace {
-
-BwdParams git_params(const void* lse, const void* delta,
-                     const void* text_mask, const void* seed, int H, int S,
-                     int num_img, int L, float scale, unsigned int thresh,
-                     float inv_keep) {
-  BwdParams p{};
-  p.lse = static_cast<const float*>(lse);
-  p.delta = static_cast<const float*>(delta);
-  p.H = H;
-  p.Lq = S;
-  p.Lk = S;
-  p.scale_log2 = scale * LOG2E;
-  p.ds_scale = 1.f;
-  p.out_scale = scale;
-  p.text_mask = static_cast<const int32_t*>(text_mask);
-  p.num_img = num_img;
-  p.L = L;
-  p.seed_ptr = static_cast<const int32_t*>(seed);
-  p.thresh = thresh;
-  p.inv_keep = inv_keep;
-  return p;
-}
-
-}  // namespace
-
 extern "C" {
 
 // Both launchers run on `stream` and return 0, a cudaError_t or an
@@ -83,7 +57,7 @@ int git_flash_bwd_dq(const void* q, const void* k, const void* v,
                                         o_ss, do_sb, do_sh, do_ss, st);
   if (err) return err;
   BwdParams p = git_params(lse, delta, text_mask, seed, H, S, num_img, L,
-                           scale, thresh, inv_keep);
+                           1.f, scale, scale, thresh, inv_keep);
   p.dq = static_cast<__nv_bfloat16*>(dq);
   p.dq_sb = dq_sb;
   p.dq_sh = dq_sh;
@@ -109,7 +83,7 @@ int git_flash_bwd_dkv(const void* q, const void* k, const void* v,
                       float scale, unsigned int thresh, float inv_keep,
                       void* stream) {
   BwdParams p = git_params(lse, delta, text_mask, seed, H, S, num_img, L,
-                           scale, thresh, inv_keep);
+                           1.f, scale, scale, thresh, inv_keep);
   p.dk = static_cast<__nv_bfloat16*>(dk);
   p.dk_sb = dk_sb;
   p.dk_sh = dk_sh;

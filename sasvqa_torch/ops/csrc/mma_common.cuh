@@ -1,7 +1,6 @@
 // Pieces shared by every flash-attention kernel of the port: bf16
 // packing, the D = rowsum(dO * O) prologue of the backward kernels and the
-// launchers' error string; and the warp-level mma.sync product and tile
-// loader of the fused GIT backward (git_flash_bwd.cu).
+// launchers' error string.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -10,49 +9,11 @@
 
 namespace {
 
-constexpr int DH = 64;         // head dim (the wrappers reject others)
-constexpr int PITCH = DH + 8;  // smem row pitch in bf16: 144 B, conflict-free
+constexpr int DH = 64;  // head dim (the wrappers reject others)
 
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t ld_u16(const __nv_bfloat16* p) {
-  return static_cast<uint32_t>(*reinterpret_cast<const uint16_t*>(p));
-}
-
-// D += A(16x16 bf16, row) * B(16x8 bf16, col), f32 accumulate
-__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// ROWS x DH bf16 tile from global (row stride `ss` elements) into smem;
-// rows at or past S are zero-filled
-template <int ROWS, int NTHREADS>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* src,
-                                          long long ss, int row0, int S,
-                                          int tid) {
-  constexpr int VEC = 8;  // 8 bf16 = 16 B per load
-  for (int i = tid; i < ROWS * (DH / VEC); i += NTHREADS) {
-    const int r = i / (DH / VEC);
-    const int c = (i % (DH / VEC)) * VEC;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < S) {
-      val = *reinterpret_cast<const uint4*>(src + (long long)(row0 + r) * ss + c);
-    }
-    *reinterpret_cast<uint4*>(dst + r * PITCH + c) = val;
-  }
 }
 
 constexpr int DELTA_THREADS = 128;

@@ -1,8 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the flash-attention forward
 // mainloop (flash_fwd_sm90.cuh: K1, K5) and backward mainloop
-// (flash_bwd_sm90.cuh: K3, K6): the mask policies, mbarrier and TMA PTX
-// wrappers, wgmma descriptors and products on 128-byte-swizzled 64-row
-// tiles, and the host-side tensor-map encode.
+// (flash_bwd_sm90.cuh: K2, K3, K6): the mask policies, mbarrier, TMA and
+// bulk-reduction PTX wrappers, wgmma descriptors and products on
+// 128-byte-swizzled 64-row tiles, and the host-side tensor-map encode.
 //
 // Tile layout.  Every tile is ROWS x Dh bf16 (Dh = 64: one 128-byte row),
 // copied by TMA with the 128-byte swizzle into a 1024 B-aligned buffer.
@@ -87,6 +87,77 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       : "memory");
 }
 
+// a 4-byte copy from global to shared memory that zero-fills `dst`
+// instead when !valid (then `src` is not read)
+__device__ __forceinline__ void cp_async_4(uint32_t dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+// arrives on `bar` once this thread's earlier cp.async copies have landed;
+// the arrival is one of those the barrier expects
+__device__ __forceinline__ void cp_async_arrive_noinc(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::
+                   "r"(bar)
+               : "memory");
+}
+
+// adds the f32 box at `src` (shared memory, the map's swizzle) into the
+// global tensor at (col, row, h, b) by a TMA reduction in L2; rows past
+// the tensor's extent are skipped.  Tracked by the issuing thread's bulk
+// groups (bulk_commit / bulk_wait_read)
+__device__ __forceinline__ void tma_reduce_add(const CUtensorMap* map,
+                                               uint32_t src, int col, int row,
+                                               int h, int b) {
+  asm volatile(
+      "cp.reduce.async.bulk.tensor.4d.global.shared::cta.add.bulk_group"
+      " [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(col), "r"(row), "r"(h), "r"(b)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// until at most N of this thread's bulk groups still read shared memory
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// until at most N of this thread's bulk groups are incomplete
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// orders this thread's generic-proxy shared-memory writes before later
+// async-proxy reads of them (wgmma operands, TMA stores and reductions)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// a named barrier over `threads` threads (whole warps); id 0 is
+// __syncthreads
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ void st_shared_u32(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
+}
+
+__device__ __forceinline__ void st_shared_f32x2(uint32_t addr, float a,
+                                                float b) {
+  asm volatile("st.shared.v2.f32 [%0], {%1, %2};\n" ::"r"(addr), "f"(a),
+               "f"(b)
+               : "memory");
+}
+
 // 2^x in one MUFU op; denormal results flush to 0 (p < 2^-126 adds nothing
 // to l or to the bf16 P)
 __device__ __forceinline__ float ex2(float x) {
@@ -156,6 +227,40 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
       : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d(64 x 64, f32) (+)= A(64 x 16, smem MN-major) * B(16 x 64, smem
+// MN-major): both operands stored with their contracted axis as rows.
+// ACC false writes d (d = A.B) without reading it, so d holds nothing
+// live before the product
+template <bool ACC>
+__device__ __forceinline__ void wgmma_ss_n64_tt(float (&d)[32], uint64_t da,
+                                                uint64_t db) {
+#define SASVQA_WGMMA_TT(C)                                                   \
+  asm volatile(                                                              \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                           \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"               \
+      "%0, %1, %2, %3, %4, %5, %6, %7, "                                     \
+      "%8, %9, %10, %11, %12, %13, %14, %15, "                               \
+      "%16, %17, %18, %19, %20, %21, %22, %23, "                             \
+      "%24, %25, %26, %27, %28, %29, %30, %31},"                             \
+      " %32, %33, p, 1, 1, 1, 1;\n}\n"                                       \
+      : C(d[0]), C(d[1]), C(d[2]), C(d[3]), C(d[4]), C(d[5]), C(d[6]),      \
+        C(d[7]), C(d[8]), C(d[9]), C(d[10]), C(d[11]), C(d[12]), C(d[13]),  \
+        C(d[14]), C(d[15]), C(d[16]), C(d[17]), C(d[18]), C(d[19]),         \
+        C(d[20]), C(d[21]), C(d[22]), C(d[23]), C(d[24]), C(d[25]),         \
+        C(d[26]), C(d[27]), C(d[28]), C(d[29]), C(d[30]), C(d[31])          \
+      : "l"(da), "l"(db), "r"(ACC ? 1 : 0))
+#define SASVQA_RW(x) "+f"(x)
+#define SASVQA_W(x) "=f"(x)
+  if constexpr (ACC) {
+    SASVQA_WGMMA_TT(SASVQA_RW);
+  } else {
+    SASVQA_WGMMA_TT(SASVQA_W);
+  }
+#undef SASVQA_W
+#undef SASVQA_RW
+#undef SASVQA_WGMMA_TT
 }
 
 // d(64 x 16, f32) (+)= A(64 x 16, smem K-major) * B(16 x 16, smem K-major)
@@ -274,10 +379,12 @@ int encode_tiled_fn(EncodeTiledFn* out) {
   return 0;
 }
 
-// a 4-D (Dh, rows, H, B) bf16 map with (box_rows, Dh) boxes and 128-byte
+// a 4-D (Dh, rows, H, B) map with (box_rows, box_cols) boxes and 128-byte
 // swizzle over a (B, H, rows, Dh) view with element strides (sb, sh, ss)
-int encode_qkv_map(CUtensorMap* map, const void* ptr, int rows, int H, int B,
-                   long long sb, long long sh, long long ss, int box_rows) {
+int encode_rows_map(CUtensorMap* map, CUtensorMapDataType type,
+                    int elem_bytes, const void* ptr, int rows, int H, int B,
+                    long long sb, long long sh, long long ss, int box_rows,
+                    int box_cols) {
   EncodeTiledFn encode;
   const int err = encode_tiled_fn(&encode);
   if (err) return err;
@@ -290,17 +397,31 @@ int encode_qkv_map(CUtensorMap* map, const void* ptr, int rows, int H, int B,
   cuuint64_t strides[3];
   for (int i = 0; i < 3; ++i) {
     // the stride of an axis of extent 1 is never used: any legal value
-    strides[i] = static_cast<cuuint64_t>(ext[i] > 1 ? st[i] : DH) * 2;
+    strides[i] = static_cast<cuuint64_t>(ext[i] > 1 ? st[i] : DH) *
+                 elem_bytes;
   }
-  const cuuint32_t box[4] = {static_cast<cuuint32_t>(DH),
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(box_cols),
                              static_cast<cuuint32_t>(box_rows), 1, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   const CUresult res = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
-      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+      map, type, 4, const_cast<void*>(ptr), dims, strides, box, elem,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? 0 : ERR_TMA_ENCODE + static_cast<int>(res);
+}
+
+// a bf16 q/k/v/dO map: (box_rows, Dh) boxes of 128-byte rows
+int encode_qkv_map(CUtensorMap* map, const void* ptr, int rows, int H, int B,
+                   long long sb, long long sh, long long ss, int box_rows) {
+  return encode_rows_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, ptr, rows,
+                         H, B, sb, sh, ss, box_rows, DH);
+}
+
+// an f32 gradient map: (box_rows, Dh / 2) boxes, 128-byte rows again
+int encode_f32_map(CUtensorMap* map, const void* ptr, int rows, int H, int B,
+                   long long sb, long long sh, long long ss, int box_rows) {
+  return encode_rows_map(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, ptr, rows,
+                         H, B, sb, sh, ss, box_rows, DH / 2);
 }
 
 }  // namespace

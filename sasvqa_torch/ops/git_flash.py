@@ -12,8 +12,9 @@ differentiable through :class:`_GitFlashFunction`:
 - CUDA tensors launch the hand-written Hopper kernels
   ``csrc/git_flash_fwd.cu`` (K1, replaces the Pallas TPU kernel
   ``_fwd_kernel``) and, for the backward, ``csrc/git_flash_bwd.cu`` (K2,
-  replaces ``_fused_bwd_kernel``) or ``csrc/git_flash_bwd_split.cu`` (K3,
-  replaces ``_dq_kernel``/``_dkv_kernel``), as :func:`_fused_eligible`
+  replaces ``_fused_bwd_kernel``: one pass, dQ summed into an f32
+  workspace by TMA reductions) or ``csrc/git_flash_bwd_split.cu`` (K3,
+  replaces ``_dq_kernel``/``_dkv_kernel``), as :data:`FUSED_BWD`
   routes them; all regenerate the dropout mask in-kernel (``hash_keep``
   in ``csrc/git_flash_common.cuh``, replacing ``_hash_keep``).  A CUDA
   tensor the kernels cannot take raises;
@@ -40,6 +41,7 @@ from sasvqa_torch.ops.attention import NEG_INF
 
 KERNEL = "git_flash_fwd"
 KERNEL_BWD = "git_flash_bwd"
+KERNEL_BWD_REDUCE = "git_flash_bwd_reduce_only"
 KERNEL_SPLIT = "git_flash_bwd_split"
 COUNT_DQ, COUNT_DKV = "git_flash_bwd_dq", "git_flash_bwd_dkv"
 HEAD_DIM = 64
@@ -282,7 +284,8 @@ def bwd_tile_plan(num_img: int, s: int, block_m: int = FWD_BLOCK_M,
     starts at the query tile holding row k0; any other key tile visits
     every query tile.  A key tile wholly below num_img is attendable from
     every row and runs no mask code.  (The dQ program visits the key
-    tiles of :func:`fwd_tile_plan`.)"""
+    tiles of :func:`fwd_tile_plan`; K2's fused program visits the plan
+    with ``block_n=FUSED_BLOCK_N``.)"""
     plan = {}
     for k0 in range(0, s, block_n):
         q_begin = k0 // block_m * block_m if k0 >= num_img else 0
@@ -291,10 +294,18 @@ def bwd_tile_plan(num_img: int, s: int, block_m: int = FWD_BLOCK_M,
     return plan
 
 
+# K2's key tile: two 64-key halves, one a consumer warpgroup (FUSED_BN in
+# csrc/flash_bwd_sm90.cuh).  Its plan is :func:`bwd_tile_plan` with
+# ``block_n=FUSED_BLOCK_N``; a 64-key half wholly below num_img runs no
+# mask code.
+FUSED_BLOCK_N = 128
+
+
 def _kernel_fn(name: str):
     fn = _fns.get(name)
     if fn is None:
         lib = _build.load(KERNEL_SPLIT if name in (COUNT_DQ, COUNT_DKV)
+                          else KERNEL_BWD if name == KERNEL_BWD_REDUCE
                           else name)
         if name == KERNEL:
             fn = lib.git_flash_fwd
@@ -303,8 +314,8 @@ def _kernel_fn(name: str):
                            + [ctypes.c_float, ctypes.c_void_p,
                               ctypes.c_uint32, ctypes.c_float,
                               ctypes.c_void_p])
-        elif name == KERNEL_BWD:
-            fn = lib.git_flash_bwd
+        elif name in (KERNEL_BWD, KERNEL_BWD_REDUCE):
+            fn = getattr(lib, name)
             fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 5
                            + [ctypes.c_longlong] * 24
                            + [ctypes.c_float, ctypes.c_uint32,
@@ -377,14 +388,14 @@ def _check_bwd(q, k, v, o, lse, do, attention_mask, num_img):
                          "f32 LSE")
 
 
-def _launch_bwd(q, k, v, o, lse, do, attention_mask, num_img, rate=0.0,
-                seed=None):
-    """K2 (with K4 inside when ``rate`` > 0) on CUDA tensors: returns
-    (dQ, dK, dV) in bf16.  dQ accumulates in an f32 buffer by atomics
-    and is cast afterwards."""
+def _run_fused(entry, q, k, v, o, lse, do, attention_mask, num_img, rate,
+               seed):
+    """Launches the fused program's C entry ``entry`` on CUDA tensors and
+    returns (the f32 dQ workspace, dK, dV)."""
     _check_bwd(q, k, v, o, lse, do, attention_mask, num_img)
     b, h, s, dh = q.shape
-    q, k, v, o, do = (_build.kernel_ready(x) for x in (q, k, v, o, do))
+    q, k, v, do = (_build.tma_ready(x) for x in (q, k, v, do))
+    o = _build.kernel_ready(o)
     text_mask = attention_mask.to(torch.int32).contiguous()
     seed_t = _seed_tensor(seed, q.device)
     thresh, inv_keep = _dropout_consts(rate)
@@ -400,7 +411,7 @@ def _launch_bwd(q, k, v, o, lse, do, attention_mask, num_img, rate=0.0,
     strides = [st for x in (q, k, v, o, do, dq_acc, dk, dv)
                for st in x.stride()[:3]]
     with torch.cuda.device(q.device):
-        err = _kernel_fn(KERNEL_BWD)(
+        err = _kernel_fn(entry)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             do.data_ptr(), lse.data_ptr(), text_mask.data_ptr(),
             seed_t.data_ptr(), dq_acc.data_ptr(), dk.data_ptr(),
@@ -408,10 +419,32 @@ def _launch_bwd(q, k, v, o, lse, do, attention_mask, num_img, rate=0.0,
             attention_mask.shape[1], *strides, dh ** -0.5, thresh,
             inv_keep, stream)
     _build.raise_on_error(KERNEL_BWD, err)
+    return dq_acc, dk, dv
+
+
+def _launch_bwd(q, k, v, o, lse, do, attention_mask, num_img, rate=0.0,
+                seed=None):
+    """K2 (with K4 inside when ``rate`` > 0) on CUDA tensors: returns
+    (dQ, dK, dV) in bf16.  dQ is summed over 128 keys at a time into a
+    zeroed f32 workspace by TMA reductions and cast afterwards; the fill
+    and the cast are part of K2's time."""
+    dq_acc, dk, dv = _run_fused(KERNEL_BWD, q, k, v, o, lse, do,
+                                attention_mask, num_img, rate, seed)
     _build.count_launch(KERNEL_BWD)
     if rate > 0.0:
         _build.count_launch(_build.HASH_DROPOUT)
     return dq_acc.to(q.dtype), dk, dv
+
+
+def _launch_bwd_reduce_only(q, k, v, o, lse, do, attention_mask, num_img,
+                            rate=0.0, seed=None):
+    """K2's launch with its products and elementwise work compiled out:
+    the D prologue, the ring, the dQ staging and the reductions of zero
+    tiles (``git_flash_bwd_reduce_only``), at K2's grid and tile plan.  A
+    measurement of what the dQ reduction costs, counted nowhere; returns
+    the f32 workspace."""
+    return _run_fused(KERNEL_BWD_REDUCE, q, k, v, o, lse, do,
+                      attention_mask, num_img, rate, seed)[0]
 
 
 def _launch_bwd_dq(q, k, v, o, lse, do, attention_mask, num_img, rate=0.0,
@@ -489,29 +522,13 @@ def _launch_bwd_split(q, k, v, o, lse, do, attention_mask, num_img,
     return dq, dk, dv
 
 
-# The backward's route, as the JAX package's module flag: False sends
-# every backward through the split kernels (K3).
+# The backward's route, as the JAX package's module flag: True sends every
+# backward through the fused kernel (K2), False through the split kernels
+# (K3).  K2 took less device time than K3 at every length and rate that
+# chip_smoke.py measures (split_kernels: S = 604, 1608, 3184 and 4144,
+# rates 0 and 0.1, NVIDIA H100 80GB HBM3, 700.00 W; PERF.md), so the route
+# holds no length crossover.
 FUSED_BWD = True
-
-# The shortest S from which the split kernels (K3) take the backward, per
-# dropout rate (0, > 0): the crossover past which K3 was measured faster
-# than K2 at every longer length; None = K2 at every length.  Measured by
-# chip_smoke.py (split_kernels, device time of every kernel each launcher
-# runs) at S = 604, 1608, 3184 and 4144 on NVIDIA H100 80GB HBM3,
-# 700.00 W (PERF.md): K3 took less device time than K2 at every length
-# and rate, K3 / K2 ms at rate 0 (0.1): 0.038 / 0.107 (0.050 / 0.113) at
-# S = 604 (B = 2), 1.30 / 3.60 (1.87 / 4.61) at 1608, 2.38 / 6.98
-# (3.55 / 8.67) at 3184, 3.81 / 11.29 (5.75 / 14.34) at 4144.  Only at
-# S = 604 does K3's launchers' host time exceed K2's.
-_SPLIT_MIN_SEQ = 604
-_SPLIT_MIN_SEQ_DROPOUT = 604
-
-
-def _fused_eligible(s: int, rate: float = 0.0) -> bool:
-    """Whether the backward of a length-``s`` sequence at ``rate`` takes
-    the fused kernel (K2); the split kernels (K3) otherwise."""
-    cross = _SPLIT_MIN_SEQ_DROPOUT if rate > 0.0 else _SPLIT_MIN_SEQ
-    return FUSED_BWD and (cross is None or s < cross)
 
 
 def git_flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -520,11 +537,11 @@ def git_flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        rate: float = 0.0, seed: SeedLike = None
                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dQ, dK, dV) of :func:`git_flash_attention` from its saved O and
-    LSE, routed by :func:`_fused_eligible`: K2 or K3 on CUDA tensors,
+    LSE, routed by :data:`FUSED_BWD`: K2 or K3 on CUDA tensors,
     :func:`git_flash_backward_reference` or
     :func:`git_flash_backward_split_reference` on CPU tensors."""
     args = (q, k, v, o, lse, do, attention_mask, num_img, rate, seed)
-    fused = _fused_eligible(q.shape[2], rate)
+    fused = FUSED_BWD
     if q.device.type == "cpu":
         return (git_flash_backward_reference(*args) if fused
                 else git_flash_backward_split_reference(*args))

@@ -5,10 +5,11 @@ backward, by device time.
 
 At the main paths' shapes (bf16, Dh = 64, seeded random inputs):
 
-- K2, the fused GIT-mask backward, at the GIT-base training shape
-  (B=16, H=12, S=1608, num_img=1576), rates 0 and 0.1;
-- K3, the split GIT-mask backward, and K2 beside it, at the ViT-L/14
-  16-frame shape (B=8, H=12, S=4144, num_img=4112), rates 0 and 0.1;
+- K2, the fused GIT-mask backward, and K3, the split one, at the GIT-base
+  training shape (B=16, H=12, S=1608, num_img=1576) and the ViT-L/14
+  16-frame shape (B=8, H=12, S=4144, num_img=4112), rates 0 and 0.1,
+  with K2's launch with its products compiled out (the D prologue, the
+  ring and the dQ reductions alone: ``reduce_only_device_ms``);
 - K6, the generic backward, at the BLIP-base training shape
   (B*T=32, H=12, Lq=Lk=577), no bias.
 
@@ -149,9 +150,9 @@ def _git_inputs(b, h, num_img, l, seed):
     return q, k, v, do, mask
 
 
-def git_case(name, shape, split, reps):
-    """K2 or K3 at ``shape`` at rates 0 and 0.1, with K2 beside K3 and
-    SDPA's backward at rate 0."""
+def git_case(name, shape, reps):
+    """K2 and K3 at ``shape`` at rates 0 and 0.1, with K2's reduction-only
+    launch and SDPA's backward at rate 0."""
     b, h, num_img, l = shape
     q, k, v, do, mask = _git_inputs(b, h, num_img, l, seed=l + b)
     seed = torch.tensor([12345], dtype=torch.int32, device="cuda")
@@ -159,21 +160,25 @@ def git_case(name, shape, split, reps):
     for rate in (0.0, 0.1):
         o, lse = gf.git_flash_attention(q, k, v, mask, num_img, rate, seed)
         args = (q, k, v, o, lse, do, mask, num_img, rate, seed)
-        launch = gf._launch_bwd_split if split else gf._launch_bwd
-        dev, names = device_window(lambda: launch(*args), reps)
-        row = {"case": name, "kernel": "K3" if split else "K2",
-               "rate": rate, "shape": {"B": b, "H": h, "S": num_img + l,
-                                       "num_img": num_img},
-               "device_ms": dev, "kernels": names,
-               "kernel_ms": cuda_ms(lambda: launch(*args), reps)}
-        if split:
-            row["k2_device_ms"] = device_window(
-                lambda: gf._launch_bwd(*args), reps)[0]
+        sdpa = None
         if rate == 0.0:
             ok = gf.git_mask_ok(num_img, mask)[:, None]
-            row["sdpa"] = sdpa_backward(q, k, v, do, ok, reps)
-            row["factor"] = dev / row["sdpa"]["device_ms"]
-        rows.append(row)
+            sdpa = sdpa_backward(q, k, v, do, ok, reps)
+        for kernel, launch in (("K2", gf._launch_bwd),
+                               ("K3", gf._launch_bwd_split)):
+            dev, names = device_window(lambda: launch(*args), reps)
+            row = {"case": name, "kernel": kernel, "rate": rate,
+                   "shape": {"B": b, "H": h, "S": num_img + l,
+                             "num_img": num_img},
+                   "device_ms": dev, "kernels": names,
+                   "kernel_ms": cuda_ms(lambda: launch(*args), reps)}
+            if kernel == "K2":
+                row["reduce_only_device_ms"] = device_window(
+                    lambda: gf._launch_bwd_reduce_only(*args), reps)[0]
+            if sdpa is not None:
+                row["sdpa"] = sdpa
+                row["factor"] = dev / sdpa["device_ms"]
+            rows.append(row)
         del o, lse
     return rows
 
@@ -209,9 +214,8 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
-    rows = (git_case("git_train", GIT_TRAIN, False, args.reps)
-            + git_case("vitl16", VITL16, True, args.reps)
-            + blip_case(args.reps))
+    rows = (git_case("git_train", GIT_TRAIN, args.reps)
+            + git_case("vitl16", VITL16, args.reps) + blip_case(args.reps))
     for row in rows:
         print(json.dumps(dict(row, card=card)), flush=True)
     print(json.dumps({"factors": {f"{r['kernel']} {r['case']}": r["factor"]

@@ -105,11 +105,11 @@ def test_dropout_forward_matches_plain(cuda, b, h, num_img, l):
 @pytest.mark.parametrize("rate", [0.0, 0.2])
 @pytest.mark.parametrize("b,h,num_img,l", SHAPES)
 def test_backward_matches_plain(cuda, b, h, num_img, l, rate):
-    """The routed backward (K2, or K3 from the measured crossover in S on)
-    through autograd on split-head views of one fused QKV tensor, with dO
-    arriving through merge_heads' backward as a strided view."""
+    """The routed backward (K2, or K3 when FUSED_BWD is False) through
+    autograd on split-head views of one fused QKV tensor, with dO arriving
+    through merge_heads' backward as a strided view."""
     from sasvqa_torch.ops import git_flash as gf
-    fused = gf._fused_eligible(num_img + l, rate)
+    fused = gf.FUSED_BWD
     qkv, q, k, v = _qkv(cuda, b, h, num_img, l, seed=num_img,
                         requires_grad=True)
     mask = _mask(b, l, l).to(cuda)
@@ -404,14 +404,12 @@ def test_split_backward_rejects_what_it_cannot_take(cuda):
 
 
 def test_route_flag_sends_the_backward_through_k3(cuda, monkeypatch):
-    """FUSED_BWD=False routes every CUDA backward to K3, True with no
-    crossover below S to K2; the autograd backward follows the route."""
+    """FUSED_BWD=False routes every CUDA backward to K3, True to K2; the
+    autograd backward follows the route."""
     gf, args = _split_inputs(cuda, 2, 2, 130, 6, 0.1)
     q, k, v, o, lse, do, mask, num_img, rate, seed = args
     for flag, name in ((False, "git_flash_bwd_dq"), (True, "git_flash_bwd")):
         monkeypatch.setattr(gf, "FUSED_BWD", flag)
-        if flag:
-            monkeypatch.setattr(gf, "_SPLIT_MIN_SEQ_DROPOUT", None)
         xs = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
         _build.reset_launch_counts()
         out, _ = git_flash_attention(*xs, mask, num_img, rate, seed)
@@ -636,3 +634,91 @@ def test_k6_launchers_raise_on_what_they_cannot_take(cuda):
     _, delta = _launch_dq(q, k, v, o, lse, do, None)
     with pytest.raises(ValueError, match="Lq\\) D"):
         _launch_dkv(q, k, v, o, lse, do, None, delta[..., :64])
+
+
+# ---- K2: the fused git-flash backward on the Hopper mainloop ---------------
+
+# (B, H, num_img, L, rate): ragged S, num_img on both sides of a 64 and a
+# 128 boundary (the key halves and the 128-key tiles), a text-heavy
+# sequence, and one key
+TILING_FUSED_SHAPES = [
+    (2, 2, 63, 2, 0.0), (1, 2, 64, 5, 0.1), (2, 2, 65, 70, 0.0),
+    (1, 3, 127, 2, 0.1), (2, 2, 128, 5, 0.0), (1, 2, 129, 70, 0.1),
+    (2, 2, 255, 3, 0.0), (1, 2, 256, 1, 0.1), (2, 2, 1, 200, 0.1),
+    (2, 2, 564, 13, 0.0), (1, 2, 640, 64, 0.1), (1, 1, 1, 1, 0.0)]
+
+
+def _fused_args(cuda, b, h, num_img, l, rate):
+    from sasvqa_torch.ops import git_flash as gf
+    _, q, k, v = _qkv(cuda, b, h, num_img, l, seed=5 * num_img + l)
+    mask = _mask(b, l, num_img + 13).to(cuda)
+    seed = torch.tensor([-(2 ** 31) + 7 * num_img], dtype=torch.int32,
+                        device=cuda)
+    o, lse = git_flash_attention(q, k, v, mask, num_img, rate, seed)
+    gen = torch.Generator(device=cuda).manual_seed(l + 2)
+    do = split_heads(torch.randn((b, num_img + l, h * 64), generator=gen,
+                                 device=cuda).to(torch.bfloat16), h)
+    return gf, (q, k, v, o, lse, do, mask, num_img, rate, seed)
+
+
+@pytest.mark.parametrize("b,h,num_img,l,rate", TILING_FUSED_SHAPES)
+def test_k2_tiling_edges_match_plain(cuda, b, h, num_img, l, rate):
+    """K2 (wgmma/TMA, 128-key tiles, dQ by TMA reductions) on split-head
+    views with S and num_img about a 64- and a 128-key boundary: within
+    the chip_smoke.py tolerance of the plain fused backward, one launch
+    (and one dropout-hash launch at rate > 0)."""
+    gf, args = _fused_args(cuda, b, h, num_img, l, rate)
+    _build.reset_launch_counts()
+    got = gf._launch_bwd(*args)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["git_flash_bwd"] == 1
+    assert _build.launch_counts["hash_dropout"] == (1 if rate else 0)
+    _grads_close(got, git_flash_backward_reference(*args))
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_k2_dkv_bits_repeat_and_dq_stays_close(cuda, rate):
+    """dK and dV are the same bits on a second launch; dQ, whose f32 sums
+    arrive in run-dependent order, stays within the gradient tolerance of
+    the second launch."""
+    gf, args = _fused_args(cuda, 2, 3, 391, 23, rate)
+    first = gf._launch_bwd(*args)
+    second = gf._launch_bwd(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(first[1], second[1])
+    assert torch.equal(first[2], second[2])
+    scale = max(first[0].float().abs().max().item(), 1e-6)
+    assert (first[0].float() - second[0].float()).abs().max().item() \
+        <= TOL_GRAD_REL * scale
+
+
+def test_k2_reduce_only_touches_only_the_workspace(cuda):
+    """The reduction-only instrument adds zero tiles: its f32 workspace
+    comes back zero, and it counts no launch."""
+    gf, args = _fused_args(cuda, 1, 2, 200, 9, 0.1)
+    _build.reset_launch_counts()
+    ws = gf._launch_bwd_reduce_only(*args)
+    torch.cuda.synchronize()
+    assert not any(_build.launch_counts.values())
+    assert ws.dtype == torch.float32 and not ws.any()
+
+
+def test_k2_launcher_raises_on_what_it_cannot_take(cuda):
+    """K2's launcher takes bf16 (B, H, S, 64) tensors on the GPU with a
+    contiguous f32 (B, H, S) LSE and a fitting mask; anything else
+    raises, nothing falls back to K3 or the plain version."""
+    gf, args = _fused_args(cuda, 1, 2, 65, 3, 0.0)
+    q, k, v, o, lse, do, mask, num_img, rate, seed = args
+    _build.reset_launch_counts()
+    with pytest.raises(ValueError, match="bf16"):
+        gf._launch_bwd(q.float(), k, v, o, lse, do, mask, num_img)
+    with pytest.raises(ValueError, match="LSE"):
+        gf._launch_bwd(q, k, v, o, lse.half(), do, mask, num_img)
+    with pytest.raises(ValueError, match="does not fit"):
+        gf._launch_bwd(q, k, v, o, lse, do, mask, num_img - 1)
+    with pytest.raises(ValueError, match="GPU"):
+        gf._launch_bwd(q, k, v, o, lse, do, mask.cpu(), num_img)
+    q32 = torch.zeros((1, 2, 68, 32), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="Dh=64"):
+        gf._launch_bwd(q32, q32, q32, q32, lse, q32, mask, num_img)
+    assert not any(_build.launch_counts.values())

@@ -229,6 +229,50 @@ def test_flash_forward_backward_match_jax_kernels(fused, rate, monkeypatch):
                                    rtol=GRAD_RTOL)
 
 
+# (num_img, L, rate, padded): num_img off the 64- and 128-key tiles on
+# both sides, text padding or none, dropout on and off
+@pytest.mark.parametrize("num_img,l,rate,padded", [
+    (129, 19, 0.0, True), (127, 21, 0.1, True), (129, 19, 0.1, False),
+    (64, 40, 0.1, True)])
+def test_fused_backward_matches_jax_fused_kernel(num_img, l, rate, padded,
+                                                 monkeypatch):
+    """FUSED_BWD=True in both packages, so K2 in the port:
+    the port's fused plain backward (K2's numerics: the scale folded into
+    dS's bf16 cast, dQ summed over key tiles in f32) against the JAX
+    _backward_fused (_fused_bwd_kernel in interpret mode), with the JAX
+    kernel test's tolerance."""
+    from sasvqa_torch.ops import git_flash as tgf
+    monkeypatch.setattr(jgf, "FUSED_BWD", True)
+    monkeypatch.setattr(tgf, "FUSED_BWD", True)
+    q, k, v, mask = _inputs(num_img, l, seed=num_img + l)
+    if not padded:
+        mask[:] = 1
+    do = np.random.default_rng(l).normal(size=q.shape).astype(np.float32)
+    seed = 2 ** 31 - 7 * num_img
+
+    def jfn(q, k, v):
+        return jgf.git_flash_attention(q, k, v, jnp.asarray(mask), num_img,
+                                       128, 128, dropout_rate=rate,
+                                       dropout_seed=jnp.int32(seed))
+
+    jout, vjp = jax.vjp(jfn, *(jnp.asarray(x) for x in (q, k, v)))
+    jgrads = vjp(jnp.asarray(do))
+    called = []
+    real = tgf.git_flash_backward_reference
+    monkeypatch.setattr(tgf, "git_flash_backward_reference",
+                        lambda *a: (called.append(1), real(*a))[1])
+    xs = [to_torch(x).requires_grad_(True) for x in (q, k, v)]
+    out, _ = git_flash_attention(*xs, to_torch(mask), num_img, rate=rate,
+                                 seed=seed if rate else None)
+    out.backward(to_torch(do))
+    assert called == [1]
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(jout),
+                               atol=ATOL, rtol=RTOL)
+    for x, jg in zip(xs, jgrads):
+        np.testing.assert_allclose(x.grad.numpy(), np.asarray(jg),
+                                   atol=GRAD_ATOL, rtol=GRAD_RTOL)
+
+
 def test_flash_dropout_matches_dense_hash_dropout():
     """Forward and gradients of the git-flash plain versions with dropout
     equal the dense hash-dropout attention under the GIT bias."""
@@ -291,38 +335,31 @@ def test_split_backward_matches_jax_split_kernels(rate, monkeypatch):
                                    atol=GRAD_ATOL, rtol=GRAD_RTOL)
 
 
-@pytest.mark.parametrize("flag,cross,cross_drop,rate,split", [
-    (False, None, None, 0.0, True),       # the flag: K3 everywhere
-    (False, None, None, 0.3, True),
-    (True, None, None, 0.0, False),       # no crossover: K2 everywhere
-    (True, None, None, 0.3, False),
-    (True, 100, None, 0.0, True),         # S = 120 at or past the crossover
-    (True, 100, None, 0.3, False),        # the rate picks its own constant
-    (True, None, 121, 0.3, False),        # S = 120 below it
-    (True, None, 120, 0.3, True),
-])
-def test_backward_route_follows_flag_and_crossover(monkeypatch, flag, cross,
-                                                   cross_drop, rate, split):
+@pytest.mark.parametrize("num_img,l", [(100, 20), (130, 7)])
+@pytest.mark.parametrize("flag,rate", [
+    (False, 0.0), (False, 0.3),          # the flag: K3 everywhere
+    (True, 0.0), (True, 0.3)])           # no crossover: K2 everywhere
+def test_backward_route_follows_flag_and_crossover(monkeypatch, flag, rate,
+                                                   num_img, l):
     """On CPU tensors the route picks the plain version of the kernel it
-    would launch on the card: the split one (K3) or the fused one (K2)."""
+    would launch on the card: the split one (K3) when FUSED_BWD is False,
+    the fused one (K2) otherwise, at every length and rate (the measured
+    crossover is none)."""
     from sasvqa_torch.ops import git_flash as tgf
     monkeypatch.setattr(tgf, "FUSED_BWD", flag)
-    monkeypatch.setattr(tgf, "_SPLIT_MIN_SEQ", cross)
-    monkeypatch.setattr(tgf, "_SPLIT_MIN_SEQ_DROPOUT", cross_drop)
     called = []
     for name in ("git_flash_backward_reference",
                  "git_flash_backward_split_reference"):
         real = getattr(tgf, name)
         monkeypatch.setattr(tgf, name, lambda *a, _r=real, _n=name: (
             called.append(_n), _r(*a))[1])
-    q, k, v, mask = _inputs(100, 20, seed=2)
-    assert tgf._fused_eligible(120, rate) is (not split)
+    q, k, v, mask = _inputs(num_img, l, seed=2)
     xs = [to_torch(x).requires_grad_(True) for x in (q, k, v)]
-    out, _ = git_flash_attention(*xs, to_torch(mask), 100, rate=rate,
+    out, _ = git_flash_attention(*xs, to_torch(mask), num_img, rate=rate,
                                  seed=5 if rate else None)
     out.sum().backward()
-    assert called == ["git_flash_backward_split_reference" if split
-                      else "git_flash_backward_reference"]
+    assert called == ["git_flash_backward_reference" if flag
+                      else "git_flash_backward_split_reference"]
 
 
 # (num_img, L, block_m, block_n): K1's tiles, the serving and training
@@ -403,5 +440,56 @@ def test_k3_bwd_tile_plan_covers_every_attended_pair(num_img, l):
     for k0, tiles in plan.items():
         if k0 >= num_img:
             assert tiles[0][0] == k0 // bm * bm
+        if k0 + bn <= num_img:
+            assert tiles == [(q0, False) for q0 in range(0, s, bm)]
+
+
+# (num_img, L): K2's 128-key tiles with num_img and S at and off multiples
+# of 64 and 128, a text-heavy sequence, the ragged 3-frame shape and the
+# training and vitl16 shapes
+@pytest.mark.parametrize("num_img,l", [
+    (128, 64), (127, 2), (129, 70), (64, 1), (63, 66), (1, 200),
+    (3 * 197, 13), (8 * 197, 32), (16 * 257, 32)])
+def test_k2_fused_tile_plan_covers_every_attended_pair(num_img, l):
+    """K2's fused program, :func:`bwd_tile_plan` at 128-key tiles: every
+    key lies in one tile, every attended (row, col) lies in a query tile
+    its key tile visits, once, no skipped query tile holds an attended
+    pair, and every 64-key half wholly below num_img, which skips the mask
+    code, is attendable throughout (``git_mask_ok``)."""
+    from sasvqa_torch.ops.git_flash import (FUSED_BLOCK_N, bwd_tile_plan,
+                                            git_mask_ok)
+    s, bm, bn, half = num_img + l, 64, 128, 64
+    rng = np.random.default_rng(num_img * 5 + l)
+    lens = rng.integers(1, l + 1, size=3)
+    lens[0] = l
+    mask = torch.from_numpy(
+        (np.arange(l)[None, :] < lens[:, None]).astype(np.int32))
+    ok = git_mask_ok(num_img, mask).numpy()             # (B, row, col)
+    assert FUSED_BLOCK_N == bn
+    plan = bwd_tile_plan(num_img, s, block_n=bn)
+    assert sorted(plan) == list(range(0, s, bn))
+    visits = np.zeros((s, s), np.int64)
+    for k0, tiles in plan.items():
+        cols = slice(k0, min(k0 + bn, s))
+        starts = [q0 for q0, _ in tiles]
+        assert starts == list(range(starts[0], s, bm)) and starts[0] % bm == 0
+        for q0 in range(0, starts[0], bm):
+            assert not ok[:, q0:q0 + bm, cols].any(), (k0, q0)
+        for q0, masked in tiles:
+            rows = slice(q0, min(q0 + bm, s))
+            visits[rows, cols] += 1
+            halves = [k0 + (i + 1) * half > num_img for i in range(bn // half)]
+            assert masked == any(halves)
+            for i, m in enumerate(halves):
+                hcols = slice(k0 + i * half, min(k0 + (i + 1) * half, s))
+                if not m:
+                    assert ok[:, rows, hcols].all(), (k0, q0, i)
+    assert (visits[ok.any(axis=0)] == 1).all()
+    assert visits.max() == 1
+    # a tile of text keys only starts at its own first row; one of image
+    # keys only visits every query tile and runs no mask code
+    for k0, tiles in plan.items():
+        if k0 >= num_img:
+            assert tiles[0][0] == k0
         if k0 + bn <= num_img:
             assert tiles == [(q0, False) for q0 in range(0, s, bm)]
