@@ -5,7 +5,7 @@
 
 Builds every CUDA kernel of the serving and training paths from the
 sources in the checkout and holds each kernel against its plain PyTorch
-version at the shapes the paths give it.  Then it drives four main paths
+version at the shapes the paths give it.  Then it drives the main paths
 at full width (seeded random weights), checking that each went through
 its kernels:
 
@@ -26,7 +26,18 @@ its kernels:
   gradient check of the K3 route against the K2 route and of remat on
   against off on the routed backward, and the task loop itself,
   ``start_training`` from a config file (4 updates, validation,
-  snapshots, frames from an in-memory store).
+  snapshots, frames from an in-memory store);
+- the classifier branch of the same loop on configs/msvd_qa_base3.json:
+  CLIP ViT-B/16 as shipped, its ``model.pretrained_weights`` a seeded
+  full-width checkpoint in HF CLIPModel names (written by
+  ``sasvqa_torch.tools.hf_checkpoint`` without transformers) and its
+  ``tokenizer_dir`` a BPE vocabulary of its questions (6 updates; every
+  loaded leaf checked against the port converter's tree of the
+  checkpoint, three of them against its raw tensors), then BLIP-base at
+  384x384 (6 updates, through K5 and K6, each of whose shapes in the run
+  was held against its plain version above);
+  and a seeded full-width GIT-base checkpoint in HF GitForCausalLM names
+  loaded by ``load_pretrained_params`` and served one batch.
 
 Every kernel row carries the kernel's device time from ``torch.profiler``
 beside CUDA events round its Python call (the backward rows: every
@@ -60,13 +71,16 @@ from sasvqa_torch.data.pipeline import stack_microbatches
 from sasvqa_torch.data.tokenization import make_test_wordpiece
 from sasvqa_torch.models.git import (GITForCausalLM, git_attention_bias,
                                      greedy_generate)
-from sasvqa_torch.models.presets import _git_config, build_model
+from sasvqa_torch.models import convert as cv
+from sasvqa_torch.models.presets import (_clip_configs, _git_config,
+                                         build_model, load_pretrained_params)
 from sasvqa_torch.ops import _build
 from sasvqa_torch.ops.attention import padding_bias
 from sasvqa_torch.ops.flash_attention import (_launch_dkv, _launch_dq,
                                               flash_attention_reference,
                                               flash_backward_reference,
                                               flash_forward)
+from sasvqa_torch.ops import flash_attention as fa
 from sasvqa_torch.ops import git_flash as gf
 from sasvqa_torch.ops.git_flash import (git_flash_attention,
                                         git_flash_attention_reference,
@@ -74,7 +88,11 @@ from sasvqa_torch.ops.git_flash import (git_flash_attention,
                                         git_mask_ok, hash_dropout_factor)
 from sasvqa_torch.tasks import run_video_qa
 from sasvqa_torch.tasks.serve import QAEngine
-from sasvqa_torch.tools.bwd_yardstick import device_window, sdpa_backward
+from sasvqa_torch.tools.bwd_yardstick import (PROFILER_STATS, device_window,
+                                              sdpa_backward)
+from sasvqa_torch.tools.hf_checkpoint import (check_loaded, hf_clip_shapes,
+                                              hf_git_shapes,
+                                              write_hf_checkpoint)
 from sasvqa_torch.train import steps as train_steps
 from sasvqa_torch.train.steps import create_train_state, make_scan_train_step
 
@@ -1616,13 +1634,17 @@ class MemoryFrameStore:
         return self.frames[row][np.asarray(frame_inds).reshape(-1)]
 
 
-def _task_files(root):
-    """msvd_qa-format annotations of TASK's videos and a vidmapping under
-    ``root``; returns the config's path overrides."""
-    words = ["what", "who", "how", "where", "when"]
-    subjects = ["man", "woman", "dog", "cat"]
+TASK_WORDS = ["what", "who", "how", "where", "when"]
+TASK_SUBJECTS = ["man", "woman", "dog", "cat"]
+
+
+def _task_files(root, task=None):
+    """msvd_qa-format annotations of ``task``'s videos (default TASK) and
+    a vidmapping under ``root``; returns the config's path overrides."""
+    task = TASK if task is None else task
+    words, subjects = TASK_WORDS, TASK_SUBJECTS
     answers = ["cooking", "running", "ball", "brown", "beach", "man"]
-    vids = [f"vid{i:04d}" for i in range(TASK["videos"])]
+    vids = [f"vid{i:04d}" for i in range(task["videos"])]
 
     def annos(n_per_video, videos):
         out = []
@@ -1636,9 +1658,9 @@ def _task_files(root):
         return out
 
     paths = {}
-    for split, rows in (("train", annos(TASK["questions"], vids)),
-                        ("val", annos(1, vids[:TASK["val"]])),
-                        ("test", annos(1, vids[-TASK["test"]:]))):
+    for split, rows in (("train", annos(task["questions"], vids)),
+                        ("val", annos(1, vids[:task["val"]])),
+                        ("test", annos(1, vids[-task["test"]:]))):
         paths[split] = os.path.join(root, f"qa_{split}.json")
         with open(paths[split], "w") as f:
             json.dump(rows, f)
@@ -1653,23 +1675,26 @@ def _task_files(root):
             "vid_mapping": paths["vidmapping"]}
 
 
-def phase_task_loop():
-    """``start_training`` at the vitl16 shape, on the card, through its
-    normal entry (a config file parsed by get_video_qa_args), frames from
-    an in-memory store: 4 AdamW updates of 2 micros of 8 questions over 16
-    frames, one in-loop validation and the final one.  The step, the
-    prefetcher and validate are wrapped to time them; nothing else in the
-    loop changes."""
-    t_setup = time.perf_counter()
+def _memory_store(task):
+    """``task``'s seeded frames in host memory."""
     rng = np.random.default_rng(0)
-    frames = rng.standard_normal(
-        (TASK["videos"], TASK["stored_frames"], TASK["img"], TASK["img"], 3),
-        dtype=np.float32)
-    store = MemoryFrameStore(frames)
+    return MemoryFrameStore(rng.standard_normal(
+        (task["videos"], task["stored_frames"], task["img"], task["img"], 3),
+        dtype=np.float32))
+
+
+def _timed_start_training(cfg, root, store, wrap_loader=None):
+    """``start_training`` through its normal entry (``cfg`` written to a
+    file under ``root`` and parsed by get_video_qa_args), frames from
+    ``store``; the step, the prefetcher and validate are wrapped to time
+    them (and the weight loader by ``wrap_loader``); nothing else in the
+    loop changes.  Returns the result, the timings, the launch counts of
+    the run, its train/loss entries, snapshots and peak memory."""
     step_s, wait_s, val_s = [], [], []
     real_step = train_steps.make_scan_train_step
     real_validate = run_video_qa.validate
     real_prefetcher = run_video_qa.DevicePrefetcher
+    real_loader = run_video_qa.load_pretrained_params
 
     def timed_step(*a, **kw):
         step = real_step(*a, **kw)
@@ -1696,6 +1721,52 @@ def phase_task_loop():
         val_s.append(time.perf_counter() - t0)
         return out
 
+    path = os.path.join(root, "cfg.json")
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    args = run_video_qa.get_video_qa_args(["--config", path])
+    train_steps.make_scan_train_step = timed_step
+    run_video_qa.DevicePrefetcher = TimedPrefetcher
+    run_video_qa.validate = timed_validate
+    if wrap_loader is not None:
+        run_video_qa.load_pretrained_params = wrap_loader(real_loader)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        result = run_video_qa.start_training(args,
+                                             open_store=lambda path: store)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(_build.launch_counts)
+    finally:
+        train_steps.make_scan_train_step = real_step
+        run_video_qa.DevicePrefetcher = real_prefetcher
+        run_video_qa.validate = real_validate
+        run_video_qa.load_pretrained_params = real_loader
+    out = cfg["output_dir"]
+    with open(os.path.join(out, "log", "scalars.jsonl")) as f:
+        scalars = [json.loads(line) for line in f]
+    return {"result": result, "launches": launches, "wall_s": wall,
+            "step_s": step_s, "wait_s": wait_s, "val_s": val_s,
+            "losses": [r["value"] for r in scalars
+                       if r["tag"] == "train/loss"],
+            "ckpt": sorted(os.listdir(os.path.join(out, "ckpt"))),
+            "restore": sorted(os.listdir(os.path.join(out, "restore"))),
+            "max_memory_allocated_gb":
+                torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
+def phase_task_loop():
+    """``start_training`` at the vitl16 shape, on the card, through its
+    normal entry (a config file parsed by get_video_qa_args), frames from
+    an in-memory store: 4 AdamW updates of 2 micros of 8 questions over 16
+    frames, one in-loop validation and the final one.  The step, the
+    prefetcher and validate are wrapped to time them; nothing else in the
+    loop changes."""
+    t_setup = time.perf_counter()
+    store = _memory_store(TASK)
     with tempfile.TemporaryDirectory() as root:
         with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                "configs", "msvd_qa_base.json")) as f:
@@ -1706,34 +1777,13 @@ def phase_task_loop():
         cfg.pop("tokenizer_dir")
         cfg.update(TASK["overrides"], output_dir=os.path.join(root, "out"),
                    **_task_files(root))
-        path = os.path.join(root, "cfg.json")
-        with open(path, "w") as f:
-            json.dump(cfg, f)
-        args = run_video_qa.get_video_qa_args(["--config", path])
-        train_steps.make_scan_train_step = timed_step
-        run_video_qa.DevicePrefetcher = TimedPrefetcher
-        run_video_qa.validate = timed_validate
-        try:
-            torch.cuda.synchronize()
-            setup_s = time.perf_counter() - t_setup
-            torch.cuda.reset_peak_memory_stats()
-            _build.reset_launch_counts()
-            t0 = time.perf_counter()
-            result = run_video_qa.start_training(
-                args, open_store=lambda path: store)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            launches = dict(_build.launch_counts)
-        finally:
-            train_steps.make_scan_train_step = real_step
-            run_video_qa.DevicePrefetcher = real_prefetcher
-            run_video_qa.validate = real_validate
-        out = cfg["output_dir"]
-        with open(os.path.join(out, "log", "scalars.jsonl")) as f:
-            scalars = [json.loads(line) for line in f]
-        losses = [r["value"] for r in scalars if r["tag"] == "train/loss"]
-        ckpts = sorted(os.listdir(os.path.join(out, "ckpt")))
-        restore = sorted(os.listdir(os.path.join(out, "restore")))
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t_setup
+        run = _timed_start_training(cfg, root, store)
+        result, launches, losses = run["result"], run["launches"], \
+            run["losses"]
+        step_s, wait_s, val_s = run["step_s"], run["wait_s"], run["val_s"]
+        wall, ckpts, restore = run["wall_s"], run["ckpt"], run["restore"]
     steady = step_s[1:]
     per_update = TASK["overrides"]["gradient_accumulation_steps"] * \
         TASK["overrides"]["train_batch_size"]
@@ -1751,8 +1801,7 @@ def phase_task_loop():
            "prefetch_wait_ms_per_update": float(np.mean(wait_s[1:])) * 1e3,
            "prefetch_wait_first_ms": wait_s[0] * 1e3,
            "validation_s": val_s,
-           "max_memory_allocated_gb":
-               torch.cuda.max_memory_allocated() / 2 ** 30,
+           "max_memory_allocated_gb": run["max_memory_allocated_gb"],
            "losses": losses, "ckpt": ckpts, "restore": restore,
            "val": result["val"], "test": result["test"],
            "launches": launches}
@@ -1772,8 +1821,317 @@ def phase_task_loop():
     return row, launches
 
 
+# the classifier loop: configs/msvd_qa_base3.json as shipped (CLIP
+# ViT-B/16 at 224x224, the mlp head over 1000 labels, train_batch_size 8,
+# 4 accumulated micros, adam with multi_step decay, 'single' sampling: the
+# middle stored frame of each video), with a seeded full-width checkpoint
+# in HF CLIPModel names as its pretrained_weights and a BPE vocabulary of
+# its questions as its tokenizer_dir; 96 videos of 2 questions and one
+# epoch cut it to 6 updates (5 timed after the first); 32 val and 32 test
+# questions
+CLIP_TASK = dict(videos=96, questions=2, stored_frames=8, img=224, val=32,
+                 test=32, overrides={"num_train_epochs": 1})
+# the same loop with BLIP-base at 384x384 (577 tokens a frame: K5 and K6
+# in the vision tower), seeded weights, the built-in WordPiece vocab: 6
+# updates and the final validation
+BLIP_TASK = dict(videos=96, questions=2, stored_frames=4, img=384, val=16,
+                 test=16, overrides={"num_train_epochs": 1, "img_size": 384},
+                 model="Salesforce/blip-vqa-base")
+CLASSIFIER_UPDATES = 6
+# GIT-base checkpoints carry temporal embeddings for 6 frames
+# (num_image_with_embedding of microsoft/git-base-msrvtt-qa)
+GIT_TEMPORAL_FRAMES = 6
+
+
+def write_clip_bpe_files(root, texts):
+    """``vocab.json`` + ``merges.txt`` under ``root`` for
+    CLIPBPETokenizer: every lowercase ASCII letter, digit and '?' alone
+    and word-final, each word of ``texts`` built left to right by merges
+    (every merge's result in the vocabulary), and CLIP's special tokens at
+    their ids in the 49408-entry vocabulary."""
+    vocab, merges = {}, []
+    for c in "abcdefghijklmnopqrstuvwxyz0123456789?":
+        vocab.setdefault(c, len(vocab))
+        vocab.setdefault(c + "</w>", len(vocab))
+    for word in sorted({w for t in texts for w in t.lower().split()}):
+        pieces = list(word[:-1]) + [word[-1] + "</w>"]
+        cur = pieces[0]
+        for nxt in pieces[1:]:
+            if f"{cur} {nxt}" not in merges:
+                merges.append(f"{cur} {nxt}")
+            cur += nxt
+            vocab.setdefault(cur, len(vocab))
+    vocab["<|startoftext|>"], vocab["<|endoftext|>"] = 49406, 49407
+    os.makedirs(root, exist_ok=True)
+    with open(os.path.join(root, "vocab.json"), "w") as f:
+        json.dump(vocab, f)
+    with open(os.path.join(root, "merges.txt"), "w") as f:
+        f.write("#version: 0.2\n" + "\n".join(merges) + "\n")
+    return root
+
+
+def _clip_raw_checks(model, sd):
+    """Leaves checked against the raw HF tensors without the converters:
+    the fused QKV (q, k, v stacked on the output axis), the patch
+    embedding unfolded in (ph, pw, c) order, the token embedding."""
+    p = "vision_model.encoder.layers.0.self_attn"
+    qkv = torch.cat([sd[f"{p}.{x}_proj.weight"] for x in "qkv"], dim=0)
+    patch = sd["vision_model.embeddings.patch_embedding.weight"]
+    vis = model.vis_model
+    return {
+        "fused_qkv": torch.equal(
+            vis.layers_0.self_attn.qkv.weight.detach().cpu(), qkv),
+        "patch_unfold": torch.equal(
+            vis.patch_embedding.proj.weight.detach().cpu(),
+            patch.permute(0, 2, 3, 1).reshape(patch.shape[0], -1)),
+        "token_embedding": torch.equal(
+            model.txt_model.token_embedding.weight.detach().cpu(),
+            sd["text_model.embeddings.token_embedding.weight"])}
+
+
+def _base3_cfg(root, task):
+    """configs/msvd_qa_base3.json with ``task``'s overrides, its
+    annotations and an output directory under ``root``."""
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "configs", "msvd_qa_base3.json")) as f:
+        cfg = json.load(f)
+    cfg.update(task["overrides"], output_dir=os.path.join(root, "out"),
+               **_task_files(root, task))
+    return cfg
+
+
+def _split_path(cfg, split):
+    """The annotation file of a split of a task config."""
+    return {"train": cfg["train_datasets"][0]["txt"],
+            "val": cfg["val_datasets"][0]["txt"],
+            "test": cfg["inference_txt_db"]}[split]
+
+
+def _classifier_loop_row(name, cfg, run, setup_s, frames):
+    """The row of a classifier task-loop phase: ms an update and QA pairs/s
+    (the mean of the updates after the first, with their least, median
+    and largest), validation passes, peak memory, losses, scores and
+    launches."""
+    steady = run["step_s"][1:]
+    per_update = cfg["train_batch_size"] * \
+        cfg["gradient_accumulation_steps"] * cfg["max_n_example_per_group"]
+    return {"phase": name, "model": cfg["model"]["pretrained_model"],
+            "config": "configs/msvd_qa_base3.json + " + json.dumps(
+                {k: v for k, v in cfg.items()
+                 if k in ("num_train_epochs", "img_size")}),
+            "frames_per_question": frames, "img": cfg["img_size"],
+            "questions_per_update": per_update,
+            "updates": run["result"]["global_step"], "setup_s": setup_s,
+            "wall_s": run["wall_s"], "update_s": run["step_s"],
+            "ms_per_update": float(np.mean(steady)) * 1e3,
+            "steady_update_ms": {
+                "n": len(steady), "min": float(np.min(steady)) * 1e3,
+                "median": float(np.median(steady)) * 1e3,
+                "max": float(np.max(steady)) * 1e3},
+            "qa_pairs_per_s": per_update / float(np.mean(steady)),
+            "prefetch_wait_ms_per_update":
+                float(np.mean(run["wait_s"][1:])) * 1e3,
+            "validation_s": run["val_s"],
+            "max_memory_allocated_gb": run["max_memory_allocated_gb"],
+            "losses": run["losses"], "ckpt": run["ckpt"],
+            "val": run["result"]["val"], "test": run["result"]["test"],
+            "launches": run["launches"]}
+
+
+def _check_classifier_loop(name, run, updates):
+    losses, result = run["losses"], run["result"]
+    check(result["global_step"] == updates and len(losses) == updates
+          and all(np.isfinite(losses)),
+          f"{name}: not {updates} finite train/loss entries: {losses}")
+    check(run["ckpt"] == [f"model_step_{updates}.pt"],
+          f"{name}: snapshots {run['ckpt']}")
+    check("overall_acc" in result["val"] and "overall_acc" in result["test"],
+          f"{name}: a final score dict is missing")
+
+
+def phase_clip_task_loop():
+    """``start_training`` on configs/msvd_qa_base3.json at full width
+    (CLIP ViT-B/16), its ``model.pretrained_weights`` a seeded checkpoint
+    in HF CLIPModel names that the loop loads (every converted leaf checked
+    against the checkpoint right after the load), its ``tokenizer_dir`` a
+    BPE vocabulary of its questions: 6 updates and the final
+    validation."""
+    t_setup = time.perf_counter()
+    store = _memory_store(CLIP_TASK)
+    with tempfile.TemporaryDirectory() as root:
+        cfg = _base3_cfg(root, CLIP_TASK)
+        tc, vc = _clip_configs(cfg["model"]["pretrained_model"].lower())
+        weights, sd, write_s = write_hf_checkpoint(
+            os.path.join(root, "weights"), hf_clip_shapes(tc, vc), seed=0)
+        cfg["model"]["pretrained_weights"] = weights
+        texts = []
+        for split in ("train", "val", "test"):
+            with open(_split_path(cfg, split)) as f:
+                texts += [r["question"] for r in json.load(f)]
+        cfg["tokenizer_dir"] = write_clip_bpe_files(
+            os.path.join(root, "tokenizer"), texts)
+        loads = []
+
+        def wrap(real):
+            def load(family, model, path):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                report = real(family, model, path)
+                torch.cuda.synchronize()
+                load_s = time.perf_counter() - t0
+                converted = cv.convert_clip_video_qa(
+                    sd, tc.num_layers, vc.num_layers)
+                loads.append({"loader_s": load_s, "report": report,
+                              "check": check_loaded(model, converted),
+                              "raw": _clip_raw_checks(model, sd),
+                              "family": family})
+                return report
+            return load
+
+        ckpt_bytes = os.path.getsize(os.path.join(weights,
+                                                  "pytorch_model.bin"))
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t_setup
+        run = _timed_start_training(cfg, root, store, wrap_loader=wrap)
+    check(len(loads) == 1 and loads[0]["family"] == "clip",
+          f"clip task loop: the loader ran {len(loads)} times")
+    load = loads[0]
+    report, (compared, differ) = load["report"], load["check"]
+    row = _classifier_loop_row("clip_task_loop", cfg, run, setup_s, 1)
+    row.update(checkpoint_bytes=ckpt_bytes, checkpoint_write_s=write_s,
+               loader_s=load["loader_s"], loaded=len(report["loaded"]),
+               missing_in_ckpt=report["missing_in_ckpt"],
+               mismatched=report["mismatched"],
+               leaves_checked=compared, leaves_differing=differ,
+               raw_checks=load["raw"])
+    emit(row)
+    _check_classifier_loop("clip task loop", run, CLASSIFIER_UPDATES)
+    check(not report["mismatched"]
+          and report["missing_in_ckpt"] == ["/answer_head"]
+          and compared == len(report["loaded"]) > 0 and not differ
+          and all(load["raw"].values()),
+          f"clip task loop: the loaded weights are not the checkpoint's: "
+          f"{report['mismatched']} {report['missing_in_ckpt']} "
+          f"{compared} {differ[:5]} {load['raw']}")
+    torch.cuda.empty_cache()
+    return row, run["launches"]
+
+
+def phase_blip_task_loop():
+    """The classifier loop of configs/msvd_qa_base3.json with BLIP-base at
+    384x384, seeded weights: 6 updates and the final validation, through
+    K5 and K6 in the vision tower.  Also returns the (B, H, Lq, Lk, bias
+    kind) of every K5 and every K6 call in the run, so that each is held
+    against its plain version."""
+    shapes = {"fwd": set(), "bwd": set()}
+    real_fwd, real_bwd = fa.flash_forward, fa.flash_backward
+
+    def key(q, k, bias):
+        return tuple(q.shape[:3]) + (k.shape[2],
+                                     None if bias is None else "bias")
+
+    def fwd(q, k, v, bias=None):
+        shapes["fwd"].add(key(q, k, bias))
+        return real_fwd(q, k, v, bias)
+
+    def bwd(q, k, v, o, lse, do, bias=None):
+        shapes["bwd"].add(key(q, k, bias))
+        return real_bwd(q, k, v, o, lse, do, bias)
+
+    t_setup = time.perf_counter()
+    store = _memory_store(BLIP_TASK)
+    with tempfile.TemporaryDirectory() as root:
+        cfg = _base3_cfg(root, BLIP_TASK)
+        cfg["model"]["pretrained_model"] = BLIP_TASK["model"]
+        # no BLIP checkpoint or vocabulary: seeded weights and the
+        # built-in WordPiece vocab
+        cfg["model"].pop("pretrained_weights")
+        cfg.pop("tokenizer_dir")
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t_setup
+        fa.flash_forward, fa.flash_backward = fwd, bwd
+        try:
+            run = _timed_start_training(cfg, root, store)
+        finally:
+            fa.flash_forward, fa.flash_backward = real_fwd, real_bwd
+    row = _classifier_loop_row("blip_task_loop", cfg, run, setup_s, 1)
+    row["flash_shapes"] = {part: sorted(v) for part, v in shapes.items()}
+    emit(row)
+    _check_classifier_loop("blip task loop", run, CLASSIFIER_UPDATES)
+    check(all(run["launches"][n] > 0 for n in
+              ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")),
+          f"blip task loop: K5 or K6 was not launched: {run['launches']}")
+    torch.cuda.empty_cache()
+    return row, run["launches"], shapes
+
+
+def phase_git_load():
+    """A seeded full-width checkpoint in HF GitForCausalLM names (with
+    temporal embeddings for 6 frames) loaded onto GIT-base by
+    ``load_pretrained_params``: every leaf loaded and equal to the
+    checkpoint's, the temporal embeddings dropped; then one batch served
+    through ``QAEngine`` from the loaded model."""
+    family, model = build_model(
+        {"model": {"pretrained_model": "microsoft/git-base-msrvtt-qa"}},
+        dtype=torch.bfloat16, device="cuda",
+        generator=torch.Generator().manual_seed(2))
+    gc = model.config
+    with tempfile.TemporaryDirectory() as root:
+        path, sd, write_s = write_hf_checkpoint(
+            root, hf_git_shapes(gc, GIT_TEMPORAL_FRAMES), seed=1)
+        ckpt_bytes = os.path.getsize(os.path.join(path, "pytorch_model.bin"))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        report = load_pretrained_params(family, model, path)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    compared, differ = check_loaded(
+        model, cv.convert_git(sd, gc.num_layers, gc.vision.num_layers))
+    n_params = len(list(model.parameters()))
+    temporal = [k for k in sd if "temporal" in k]
+    engine = QAEngine(model, family, make_test_wordpiece(), nframe=2,
+                      samp_policy="uniform", batch_size=SLICE["batch_size"],
+                      max_txt_len=SLICE["max_txt_len"],
+                      max_text_len=SLICE["max_text_len"], device="cuda")
+    try:
+        reqs = _requests(SLICE["batch_size"], seed=3)
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        answers = engine._run_batch([(f, q, None) for f, q in reqs])
+        torch.cuda.synchronize()
+        batch_s = time.perf_counter() - t0
+        launches = dict(_build.launch_counts)
+    finally:
+        engine.close()
+    row = {"phase": "git_load", "model": "microsoft/git-base-msrvtt-qa",
+           "checkpoint_bytes": ckpt_bytes, "checkpoint_write_s": write_s,
+           "loader_s": load_s, "loaded": len(report["loaded"]),
+           "parameters": n_params,
+           "missing_in_ckpt": report["missing_in_ckpt"],
+           "mismatched": report["mismatched"], "leaves_checked": compared,
+           "leaves_differing": differ, "temporal_keys_dropped": temporal,
+           "batch_requests": len(reqs), "batch_s": batch_s,
+           "answers": [a["answer"] for a in answers], "launches": launches}
+    emit(row)
+    check(not report["mismatched"] and not report["missing_in_ckpt"]
+          and len(report["loaded"]) == compared == n_params and not differ,
+          f"git load: {report['mismatched']} {report['missing_in_ckpt']} "
+          f"{compared}/{n_params} {differ[:5]}")
+    check(len(temporal) == GIT_TEMPORAL_FRAMES
+          and not any("temporal" in n for n, _ in model.named_parameters()),
+          f"git load: temporal embeddings {temporal}")
+    check(len(answers) == len(reqs)
+          and all(isinstance(a["answer"], str) for a in answers)
+          and launches["git_flash_fwd"] == gc.num_layers,
+          f"git load: served {answers}, launches {launches}")
+    del model, engine
+    torch.cuda.empty_cache()
+    return row
+
+
 PATHS = ("git_serve", "git_train", "blip_serve", "blip_train",
-         "vitl16_grad_check", "task_loop")
+         "vitl16_grad_check", "task_loop", "clip_task_loop",
+         "blip_task_loop")
 KERNELS = ("git_flash_fwd", "git_flash_bwd", "git_flash_bwd_dq",
            "git_flash_bwd_dkv", _build.HASH_DROPOUT, "flash_fwd",
            "flash_bwd_dq", "flash_bwd_dkv")
@@ -1794,18 +2152,24 @@ def main() -> int:
         [(TRAIN["batch_size"], 12, TRAIN["frames"] * tpf,
           TRAIN["max_seq_len"], 64), (2, 12, 3 * tpf, 13, 64)], rate)
     btok = 577
-    flash_rows = phase_flash_kernels({
+    flash_cases = {
         # BLIP-base vision self-attention: serving (64 frames) and
         # training (32 frames a micro)
         "blip_serve": (BLIP["batch_size"] * BLIP["frames"], 12, btok, btok,
                        None, False),
         "blip_train": (BLIP_TRAIN["batch_size"] * BLIP["frames"], 12, btok,
                        btok, None, True),
+        # the classifier task loop on msvd_qa_base3.json: one frame a
+        # question ('single' sampling), micros of 8 in training, batches
+        # of 16 in validation
+        "blip_task_loop_train": (8, 12, btok, btok, None, True),
+        "blip_task_loop_val": (16, 12, btok, btok, None, False),
         # rectangular: text-length queries over 4 frames' tokens with key
         # padding, and the GIT combined mask as a 2-D bias (3 frames)
         "rect_row_bias": (8, 12, 520, 4 * btok, "row", True),
         "git_mask_2d_bias": (2, 12, 3 * tpf + 13, 3 * tpf + 13, "git_mask",
-                             True)})
+                             True)}
+    flash_rows = phase_flash_kernels(flash_cases)
     phase_small_reference()
     slice_row, git_serve = phase_slice(SLICE["requests"], SLICE["seed"])
     phase_grad_check(SLICE["seed"])
@@ -1818,10 +2182,16 @@ def main() -> int:
     split_rows, crossover = phase_split_kernels(rate)
     vitl16_row, vitl16 = phase_vitl16_grad_check()
     task_row, task = phase_task_loop()
+    clip_row, clip_task = phase_clip_task_loop()
+    blip_task_row, blip_task, blip_task_shapes = phase_blip_task_loop()
+    phase_git_load()
+    # device-time windows taken, profiler steps taken again, lead records lost
+    emit({"phase": "profiler", **PROFILER_STATS})
 
     by_path = {name: dict(zip(PATHS, (counts.get(name, 0) for counts in
                                       (git_serve, git_train, blip_serve,
-                                       blip_train, vitl16, task))))
+                                       blip_train, vitl16, task, clip_task,
+                                       blip_task))))
                for name in KERNELS}
     needed = {"git_serve": ("git_flash_fwd",),
               "git_train": ("git_flash_fwd", _build.HASH_DROPOUT)
@@ -1832,10 +2202,22 @@ def main() -> int:
                                     "git_flash_bwd_dkv",
                                     _build.HASH_DROPOUT),
               "task_loop": ("git_flash_fwd", _build.HASH_DROPOUT)
-              + bwd_kernels()}
+              + bwd_kernels(),
+              # CLIP ViT-B/16 at 224x224 has 197 tokens a frame, below the
+              # flash route's 512: its path runs no kernel
+              "clip_task_loop": (),
+              "blip_task_loop": ("flash_fwd", "flash_bwd_dq",
+                                 "flash_bwd_dkv")}
     check(all(by_path[k][path] > 0 for path, ks in needed.items()
               for k in ks),
           f"a kernel of a path was not launched: {by_path}")
+    # every K5 and K6 shape of the BLIP task loop was held against its
+    # plain version in the flash kernel phase
+    held = {"fwd": {c[:5] for c in flash_cases.values()},
+            "bwd": {c[:5] for c in flash_cases.values() if c[5]}}
+    check(all(blip_task_shapes[p] <= held[p] for p in held),
+          f"blip task loop: a K5/K6 shape was not held against its plain "
+          f"version: {blip_task_shapes}, held {held}")
 
     serve, main_t = kernel_rows[0], train_rows[0]
     fwd, bwd0, bwd = main_t["fwd"], main_t["bwd_0.0"], main_t[f"bwd_{rate}"]

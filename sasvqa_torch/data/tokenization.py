@@ -1,18 +1,20 @@
-"""Offline WordPiece tokenizer (BERT/GIT vocabularies).
-
-Counterpart of the WordPiece part of sasvqa_tpu/data/tokenization.py.
-Pads to a fixed ``max_length`` so every batch has one shape.
+"""Offline tokenizers: WordPiece (BERT/GIT/BLIP vocabularies) and CLIP's
+byte-level BPE (counterpart of sasvqa_tpu/data/tokenization.py), read from
+local vocabulary files.  Both pad to a fixed ``max_length`` so every
+batch has one shape.
 
 API:
     tok(texts, max_length) -> {"input_ids": (B, L) int32,
-                               "attention_mask": (B, L) int32,
-                               "token_type_ids": (B, L) int32}
+                               "attention_mask": (B, L) int32, ...}
     tok.decode(ids)        -> str (skipping special tokens)
 """
 
 from __future__ import annotations
 
+import json
+import re
 import unicodedata
+from functools import lru_cache
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -189,6 +191,150 @@ class WordPieceTokenizer:
 
     def batch_decode(self, batch_ids, skip_special_tokens=True) -> List[str]:
         return [self.decode(row, skip_special_tokens) for row in batch_ids]
+
+
+@lru_cache()
+def _bytes_to_unicode() -> Dict[int, str]:
+    """GPT-2/CLIP byte <-> unicode table."""
+    bs = (list(range(ord("!"), ord("~") + 1))
+          + list(range(ord("\xa1"), ord("\xac") + 1))
+          + list(range(ord("\xae"), ord("\xff") + 1)))
+    cs = bs[:]
+    n = 0
+    for b in range(2 ** 8):
+        if b not in bs:
+            bs.append(b)
+            cs.append(2 ** 8 + n)
+            n += 1
+    return dict(zip(bs, [chr(c) for c in cs]))
+
+
+def _get_pairs(word):
+    pairs = set()
+    prev = word[0]
+    for ch in word[1:]:
+        pairs.add((prev, ch))
+        prev = ch
+    return pairs
+
+
+class CLIPBPETokenizer:
+    """CLIP's lowercased byte-level BPE with ``</w>`` end-of-word markers,
+    from a checkpoint's ``vocab.json`` + ``merges.txt``.  Rows are
+    ``<|startoftext|>`` + tokens + ``<|endoftext|>`` (kept on truncation),
+    padded with ``<|endoftext|>`` (HF CLIP's convention)."""
+
+    # HF CLIP's pre-tokenization pattern needs \p{L}/\p{N} from the
+    # `regex` module; without it the `re` pattern approximates them with
+    # [^\W\d_]+ and \d (number characters outside Nd, such as '½', then
+    # join the letter run instead of standing alone)
+    try:
+        import regex as _regex
+        _PAT = _regex.compile(
+            r"<\|startoftext\|>|<\|endoftext\|>|'s|'t|'re|'ve|'m|'ll|'d"
+            r"|[\p{L}]+|[\p{N}]|[^\s\p{L}\p{N}]+", _regex.IGNORECASE)
+    except ImportError:
+        _PAT = re.compile(
+            r"<\|startoftext\|>|<\|endoftext\|>|'s|'t|'re|'ve|'m|'ll|'d"
+            r"|[^\W\d_]+|\d|(?:[^\s\w]|_)+", re.IGNORECASE | re.UNICODE)
+
+    def __init__(self, vocab: Dict[str, int], merges: List[str]):
+        self.encoder = vocab
+        self.decoder = {v: k for k, v in vocab.items()}
+        self.byte_encoder = _bytes_to_unicode()
+        self.byte_decoder = {v: k for k, v in self.byte_encoder.items()}
+        ranks = [tuple(m.split()) for m in merges]
+        self.bpe_ranks = dict(zip(ranks, range(len(ranks))))
+        self.bos_token_id = vocab["<|startoftext|>"]
+        self.eos_token_id = vocab["<|endoftext|>"]
+        self.pad_token_id = self.eos_token_id
+        self._cache: Dict[str, str] = {}
+
+    @classmethod
+    def from_files(cls, vocab_json: str, merges_txt: str
+                   ) -> "CLIPBPETokenizer":
+        with open(vocab_json, encoding="utf-8") as f:
+            vocab = json.load(f)
+        with open(merges_txt, encoding="utf-8") as f:
+            merges = f.read().split("\n")
+        # HF CLIPTokenizer skips exactly the first line (the "#version"
+        # header): a merge rule may itself start with the '#' character
+        merges = [m for m in merges[1:] if m.strip()]
+        return cls(vocab, merges)
+
+    def bpe(self, token: str) -> str:
+        if token in self._cache:
+            return self._cache[token]
+        word = tuple(token[:-1]) + (token[-1] + "</w>",)
+        pairs = _get_pairs(word)
+        if not pairs:
+            return token + "</w>"
+        while True:
+            bigram = min(pairs,
+                         key=lambda p: self.bpe_ranks.get(p, float("inf")))
+            if bigram not in self.bpe_ranks:
+                break
+            first, second = bigram
+            new_word: List[str] = []
+            i = 0
+            while i < len(word):
+                try:
+                    j = word.index(first, i)
+                except ValueError:
+                    new_word.extend(word[i:])
+                    break
+                new_word.extend(word[i:j])
+                i = j
+                if (i < len(word) - 1 and word[i] == first
+                        and word[i + 1] == second):
+                    new_word.append(first + second)
+                    i += 2
+                else:
+                    new_word.append(word[i])
+                    i += 1
+            word = tuple(new_word)
+            if len(word) == 1:
+                break
+            pairs = _get_pairs(word)
+        out = " ".join(word)
+        self._cache[token] = out
+        return out
+
+    def tokenize_ids(self, text: str) -> List[int]:
+        text = " ".join(text.lower().strip().split())
+        ids: List[int] = []
+        for tok in self._PAT.findall(text):
+            tok = "".join(self.byte_encoder[b] for b in tok.encode("utf-8"))
+            for piece in self.bpe(tok).split(" "):
+                ids.append(self.encoder[piece])
+        return ids
+
+    def __call__(self, texts: Sequence[str], max_length: int = 77
+                 ) -> Dict[str, np.ndarray]:
+        b = len(texts)
+        ids = np.full((b, max_length), self.pad_token_id, dtype=np.int32)
+        mask = np.zeros((b, max_length), dtype=np.int32)
+        for i, text in enumerate(texts):
+            enc = ([self.bos_token_id] + self.tokenize_ids(text)
+                   + [self.eos_token_id])[:max_length]
+            enc[-1] = self.eos_token_id  # truncation keeps EOS
+            ids[i, :len(enc)] = enc
+            mask[i, :len(enc)] = 1
+        return {"input_ids": ids, "attention_mask": mask}
+
+    def decode(self, ids: Sequence[int],
+               skip_special_tokens: bool = True) -> str:
+        toks = []
+        for i in ids:
+            tok = self.decoder.get(int(i), "")
+            if skip_special_tokens and tok in ("<|startoftext|>",
+                                               "<|endoftext|>"):
+                continue
+            toks.append(tok)
+        text = "".join(toks)
+        data = bytearray(self.byte_decoder.get(c, 32) for c in text)
+        return bytes(data).decode("utf-8", errors="replace") \
+            .replace("</w>", " ").strip()
 
 
 def make_test_wordpiece(extra_words: Sequence[str] = ()) -> WordPieceTokenizer:

@@ -1,9 +1,13 @@
-"""CLIP vision encoder (counterpart of sasvqa_tpu/models/clip.py).
+"""CLIP text and vision encoders (counterpart of sasvqa_tpu/models/clip.py).
 
-HF ``CLIPVisionModel`` semantics over NHWC pixels: patch embedding, class
-token, position embedding, pre-LN, pre-LN encoder blocks, post-LN of the
-CLS token (or of every token, as GIT uses it).  The CLIP text encoder
-comes with the classifier families.
+- text tower = HF ``CLIPTextModel``: token + position embeddings, pre-LN
+  encoder blocks under a causal plus padding bias, final LN, pooled at
+  the first EOS token (the last position when a row has none), optionally
+  projected (no bias) into the shared embedding space;
+- vision tower = HF ``CLIPVisionModel`` over NHWC pixels: patch
+  embedding, class token, position embedding, pre-LN, pre-LN encoder
+  blocks, post-LN of the CLS token (or of every token, as GIT uses it),
+  optionally projected (no bias) to the per-frame embedding.
 """
 
 from __future__ import annotations
@@ -17,6 +21,20 @@ from torch.utils.checkpoint import checkpoint
 
 from sasvqa_torch.models.layers import (Dense, Embed, LayerNorm, PatchEmbed,
                                         PreLNBlock, init_params)
+from sasvqa_torch.ops.attention import causal_bias, padding_bias
+
+
+@dataclasses.dataclass(frozen=True)
+class CLIPTextConfig:
+    vocab_size: int = 49408
+    hidden_size: int = 512
+    intermediate_size: int = 2048
+    num_layers: int = 12
+    num_heads: int = 8
+    max_position_embeddings: int = 77
+    layer_norm_eps: float = 1e-5
+    hidden_act: str = "quick_gelu"
+    eos_token_id: int = 49407
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,6 +54,75 @@ CLIP_VIT_L14_VISION = CLIPVisionConfig(hidden_size=1024,
                                        intermediate_size=4096, num_layers=24,
                                        num_heads=16, patch_size=14,
                                        projection_dim=768)
+
+# (text, vision) presets of the reference's checkpoints
+CLIP_VIT_B32 = (CLIPTextConfig(), CLIPVisionConfig(patch_size=32))
+CLIP_VIT_B16 = (CLIPTextConfig(), CLIPVisionConfig(patch_size=16))
+CLIP_VIT_L14 = (CLIPTextConfig(hidden_size=768, intermediate_size=3072,
+                               num_layers=12, num_heads=12),
+                CLIP_VIT_L14_VISION)
+
+
+class CLIPTextEncoder(nn.Module):
+    """HF ``CLIPTextModel``; ``with_projection`` adds the bias-free
+    ``text_projection`` to ``projection_dim`` (HF
+    ``CLIPTextModelWithProjection``).  Weights are drawn from
+    ``generator`` (default: seeded with 0)."""
+
+    def __init__(self, config: CLIPTextConfig,
+                 dtype: torch.dtype = torch.float32,
+                 with_projection: bool = False, projection_dim: int = 512,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        c = config
+        self.config = c
+        self.dtype = dtype
+        self.token_embedding = Embed(c.vocab_size, c.hidden_size, dtype)
+        self.position_embedding = Embed(c.max_position_embeddings,
+                                        c.hidden_size, dtype)
+        self.num_layers = c.num_layers
+        for i in range(c.num_layers):
+            self.add_module(f"layers_{i}", PreLNBlock(
+                c.hidden_size, c.num_heads, c.intermediate_size,
+                c.hidden_act, c.layer_norm_eps, dtype))
+        self.final_layer_norm = LayerNorm(c.hidden_size, c.layer_norm_eps,
+                                          dtype)
+        self.text_projection = (
+            Dense(c.hidden_size, projection_dim, use_bias=False, dtype=dtype)
+            if with_projection else None)
+        init_params(self, generator if generator is not None
+                    else torch.Generator().manual_seed(0))
+
+    def forward(self, input_ids: torch.Tensor,
+                attention_mask: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """input_ids/attention_mask (B, L).  Returns (last_hidden_state
+        (B, L, D), pooled (B, D), projected when ``with_projection``).  A
+        text longer than ``max_position_embeddings`` raises."""
+        b, l = input_ids.shape
+        if l > self.config.max_position_embeddings:
+            raise ValueError(
+                f"text length {l} exceeds max_position_embeddings "
+                f"{self.config.max_position_embeddings}; lower "
+                f"--max_txt_len")
+        dev = input_ids.device
+        pos = torch.arange(l, device=dev)
+        x = self.token_embedding(input_ids) + self.position_embedding(
+            pos[None, :])
+        bias = causal_bias(l, dtype=self.dtype, device=dev)
+        if attention_mask is not None:
+            bias = bias + padding_bias(attention_mask, dtype=self.dtype)
+        for i in range(self.num_layers):
+            x = getattr(self, f"layers_{i}")(x, bias=bias)
+        x = self.final_layer_norm(x)
+        # the first EOS token of each row; a row with none pools its last
+        # position
+        is_eos = input_ids == self.config.eos_token_id
+        eos_pos = torch.where(is_eos, pos, l).amin(dim=-1).clamp(max=l - 1)
+        pooled = x[torch.arange(b, device=dev), eos_pos]
+        if self.text_projection is not None:
+            pooled = self.text_projection(pooled)
+        return x, pooled
 
 
 class CLIPVisionEncoder(nn.Module):

@@ -1,9 +1,10 @@
-"""Model presets + construction from a task config
-(counterpart of sasvqa_tpu/models/presets.py, GIT and BLIP families).
+"""Model presets, construction from a task config and the local HF weight
+loader (counterpart of sasvqa_tpu/models/presets.py).
 
 ``cfg`` is a mapping with ``cfg["model"]["pretrained_model"]`` naming the
 checkpoint (``"microsoft/git-base-msrvtt-qa"``,
-``"Salesforce/blip-vqa-base"``, ``"tiny-git"``, ``"tiny-blip"``, ...),
+``"openai/clip-vit-base-patch16"``, ``"Salesforce/blip-vqa-base"``,
+``"tiny-git"``, ``"tiny-clip"``, ``"tiny-blip"``, ...),
 optional ``cfg["model"]["vocab_size"]`` / ``cfg["img_size"]`` overrides,
 the GIT dropouts (``model.hidden_dropout_prob``,
 ``model.attention_probs_dropout_prob``) and vision-tower remat
@@ -11,25 +12,36 @@ the GIT dropouts (``model.hidden_dropout_prob``,
 classifier families, the head settings (``num_labels``, ``loss_type``,
 ``classifier``, ``cls_hidden_scale``, ``model.hidden_dropout_prob``,
 ``model.attn_type``).  Weights are drawn
-from a seeded generator: loading HF checkpoints is not ported yet.
+from a seeded generator; :func:`load_pretrained_params` then overlays a
+local HF checkpoint (no hub downloads).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Mapping, Optional, Tuple, Union
+import os
+from typing import Any, Dict, List, Mapping, Optional, Tuple, Union
 
+import numpy as np
 import torch
 
 from sasvqa_torch.core.device import DeviceLike, resolve_device
+from sasvqa_torch.core.logging import LOGGER
+from sasvqa_torch.models import convert as cv
 from sasvqa_torch.models.blip import BLIPTextConfig, BLIPVisionConfig
-from sasvqa_torch.models.clip import CLIP_VIT_L14_VISION, CLIPVisionConfig
+from sasvqa_torch.models.clip import (CLIP_VIT_B16, CLIP_VIT_B32,
+                                      CLIP_VIT_L14, CLIP_VIT_L14_VISION,
+                                      CLIPTextConfig, CLIPVisionConfig)
 from sasvqa_torch.models.git import GIT_BASE, GITConfig, GITForCausalLM
-from sasvqa_torch.models.video_qa import BLIPVideoQA, ClassifierHeadConfig
+from sasvqa_torch.models.video_qa import (BLIPVideoQA, ClassifierHeadConfig,
+                                          CLIPVideoQA)
 
 TINY_VISION = CLIPVisionConfig(hidden_size=32, intermediate_size=64,
                                num_layers=2, num_heads=4, image_size=32,
                                patch_size=16, projection_dim=32)
+TINY_TEXT = CLIPTextConfig(vocab_size=512, hidden_size=32,
+                           intermediate_size=64, num_layers=2, num_heads=4,
+                           max_position_embeddings=32, eos_token_id=511)
 
 
 def model_family(pretrained_model: str) -> str:
@@ -42,6 +54,16 @@ def model_family(pretrained_model: str) -> str:
     if "git" in name:
         return "git"
     raise ValueError(f"cannot infer model family from {pretrained_model!r}")
+
+
+def _clip_configs(name: str) -> Tuple[CLIPTextConfig, CLIPVisionConfig]:
+    if "tiny" in name:
+        return TINY_TEXT, TINY_VISION
+    if "large-patch14" in name or "l14" in name:
+        return CLIP_VIT_L14
+    if "patch16" in name or "b16" in name:
+        return CLIP_VIT_B16
+    return CLIP_VIT_B32
 
 
 def _git_config(name: str) -> GITConfig:
@@ -91,7 +113,8 @@ def _head_config(cfg: Mapping[str, Any]) -> ClassifierHeadConfig:
 def build_model(cfg: Mapping[str, Any], dtype: torch.dtype = torch.float32,
                 device: DeviceLike = "cuda",
                 generator: Optional[torch.Generator] = None,
-                ) -> Tuple[str, Union[GITForCausalLM, BLIPVideoQA]]:
+                ) -> Tuple[str, Union[GITForCausalLM, CLIPVideoQA,
+                                      BLIPVideoQA]]:
     """Construct the task model from ``cfg["model"]``; returns
     (family, model in eval mode on ``device``).  ``dtype`` is the
     activation dtype (parameters stay f32); weights come from
@@ -101,6 +124,16 @@ def build_model(cfg: Mapping[str, Any], dtype: torch.dtype = torch.float32,
     family = model_family(name)
     vocab_override = cfg["model"].get("vocab_size")
     img_size = cfg.get("img_size")
+    if family == "clip":
+        tc, vc = _clip_configs(name)
+        if vocab_override:
+            tc = dataclasses.replace(tc, vocab_size=vocab_override,
+                                     eos_token_id=vocab_override - 1)
+        if img_size and img_size != vc.image_size:
+            vc = dataclasses.replace(vc, image_size=img_size)
+        model = CLIPVideoQA(tc, vc, _head_config(cfg), dtype=dtype,
+                            generator=generator)
+        return family, model.to(dev).eval()
     if family == "blip":
         tc, vc = _blip_configs(name)
         if vocab_override:
@@ -110,9 +143,6 @@ def build_model(cfg: Mapping[str, Any], dtype: torch.dtype = torch.float32,
         model = BLIPVideoQA(tc, vc, _head_config(cfg), dtype=dtype,
                             generator=generator)
         return family, model.to(dev).eval()
-    if family != "git":
-        raise NotImplementedError(
-            f"the {family} family is not ported yet (GIT and BLIP only)")
     gc = _git_config(name)
     if vocab_override:
         gc = dataclasses.replace(gc, vocab_size=vocab_override)
@@ -132,3 +162,51 @@ def build_model(cfg: Mapping[str, Any], dtype: torch.dtype = torch.float32,
     model = GITForCausalLM(gc, dtype=dtype, generator=generator, remat=remat,
                            remat_policy=remat_policy)
     return family, model.to(dev).eval()
+
+
+def _load_torch_state_dict(path: str) -> Dict[str, np.ndarray]:
+    """A local HF checkpoint (a directory holding ``model.safetensors``
+    or ``pytorch_model.bin``, or one of those files) as a numpy state
+    dict."""
+    if os.path.isdir(path):
+        for fname in ("model.safetensors", "pytorch_model.bin"):
+            cand = os.path.join(path, fname)
+            if os.path.exists(cand):
+                path = cand
+                break
+    if path.endswith(".safetensors"):
+        from safetensors.numpy import load_file
+        return load_file(path)
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    return {k: v.numpy() for k, v in sd.items()}
+
+
+def load_pretrained_params(family: str, model, weights_path: str
+                           ) -> Dict[str, List[str]]:
+    """Overlay the converted weights of a local HF checkpoint onto
+    ``model`` in place, shape-tolerantly (reference: ``from_pretrained``
+    plus ``load_state_dict_with_mismatch``); returns the
+    :func:`models.convert.merge_pretrained` report."""
+    sd = _load_torch_state_dict(weights_path)
+    if family == "clip":
+        converted = cv.convert_clip_video_qa(
+            sd, model.text_config.num_layers, model.vision_config.num_layers)
+    elif family == "blip":
+        converted = {
+            "txt_model": cv.convert_blip_text(
+                sd, model.text_config.num_layers, prefix="text_model"),
+            "vis_model": cv.convert_blip_vision(
+                sd, model.vision_config.num_layers, prefix="vision_model")}
+    elif family == "git":
+        converted = cv.convert_git(sd, model.config.num_layers,
+                                   model.config.vision.num_layers)
+    else:
+        raise ValueError(family)
+    report = cv.merge_pretrained(model, converted)
+    LOGGER.info(
+        f"loaded {len(report['loaded'])} tensors from {weights_path}; "
+        f"{len(report['missing_in_ckpt'])} kept from init; "
+        f"{len(report['mismatched'])} shape mismatches")
+    for line in report["mismatched"]:
+        LOGGER.warning(f"  mismatch: {line}")
+    return report

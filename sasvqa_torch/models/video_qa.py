@@ -1,6 +1,7 @@
-"""Classifier video-QA models (counterpart of sasvqa_tpu/models/video_qa.py,
-BLIP family): the loss selection of the reference's ``calc_loss`` and
-:class:`BLIPVideoQA`.
+"""Classifier video-QA models (counterpart of sasvqa_tpu/models/video_qa.py):
+the loss selection of the reference's ``calc_loss``, :class:`CLIPVideoQA`
+and :class:`BLIPVideoQA`.  Multiple-choice scoring (``multiple_choice``)
+is not ported yet.
 
 Models take a fixed-shape frame tensor (B, T, H, W, C); ``input_ids`` may
 hold several examples per video (B a multiple of the video count), and the
@@ -19,6 +20,8 @@ from torch import nn
 from sasvqa_torch.core.pixels import maybe_dequantize
 from sasvqa_torch.models.blip import (BLIPTextConfig, BLIPTextEncoder,
                                       BLIPVisionConfig, BLIPVisionEncoder)
+from sasvqa_torch.models.clip import (CLIPTextConfig, CLIPTextEncoder,
+                                      CLIPVisionConfig, CLIPVisionEncoder)
 from sasvqa_torch.models.fusion import AnswerClassifier
 from sasvqa_torch.models.layers import init_params
 
@@ -50,6 +53,80 @@ class ClassifierHeadConfig:
     cls_hidden_scale: int = 2
     hidden_dropout_prob: float = 0.1
     attn_type: str = "dec-only"  # reference variants: enc-dec, dec-cas
+
+
+def _dropout_generator(deterministic: bool,
+                       generator: Optional[torch.Generator]):
+    if not deterministic and generator is None:
+        raise ValueError("deterministic=False needs a dropout generator")
+    return None if deterministic else generator
+
+
+class CLIPVideoQA(nn.Module):
+    """CLIP dual encoder + cross-attention fusion + answer classifier.
+
+    The text encoder's hidden states and the per-frame projected image
+    embeddings (B, T, projection_dim) meet in the fusion head.  Weights
+    are drawn from ``generator`` (default: seeded with 0)."""
+
+    def __init__(self, text_config: CLIPTextConfig,
+                 vision_config: CLIPVisionConfig, head: ClassifierHeadConfig,
+                 dtype: torch.dtype = torch.float32,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        gen = generator if generator is not None \
+            else torch.Generator().manual_seed(0)
+        self.text_config = text_config
+        self.vision_config = vision_config
+        self.head = head
+        self.dtype = dtype
+        self.txt_model = CLIPTextEncoder(text_config, dtype=dtype,
+                                         generator=gen)
+        self.vis_model = CLIPVisionEncoder(vision_config, dtype=dtype,
+                                           with_projection=True,
+                                           generator=gen)
+        self.answer_head = AnswerClassifier(
+            text_config.hidden_size, head.num_labels,
+            vis_size=vision_config.projection_dim,
+            dropout_rate=head.hidden_dropout_prob,
+            classifier=head.classifier,
+            cls_hidden_scale=head.cls_hidden_scale,
+            attn_type=head.attn_type, dtype=dtype)
+        init_params(self.answer_head, gen)
+
+    def encode_video(self, pixel_values: torch.Tensor) -> torch.Tensor:
+        """(B, T, H, W, C) pixels (u8-staged ones are dequantized) ->
+        per-frame embeddings (B, T, projection_dim)."""
+        pixel_values = maybe_dequantize(pixel_values, self.dtype)
+        b, t = pixel_values.shape[:2]
+        _, _, image_embeds = self.vis_model(
+            pixel_values.reshape((b * t,) + tuple(pixel_values.shape[2:])))
+        return image_embeds.reshape(b, t, -1)
+
+    def forward(self, input_ids: torch.Tensor, attention_mask: torch.Tensor,
+                pixel_values: torch.Tensor,
+                labels: Optional[torch.Tensor] = None,
+                deterministic: bool = True,
+                generator: Optional[torch.Generator] = None
+                ) -> Dict[str, torch.Tensor]:
+        """input_ids/attention_mask (B, L); pixel_values (Bv, T, H, W, C)
+        with B a multiple of Bv (the video encodes once and its frame
+        embeddings repeat); labels (B,).  Returns f32 ``logits``
+        (B, num_labels) and, with labels, the ``loss``.
+        ``deterministic=False`` applies the head's dropout, drawn from
+        ``generator`` (required then)."""
+        gen = _dropout_generator(deterministic, generator)
+        txt_hidden, _ = self.txt_model(input_ids, attention_mask)
+        vis = self.encode_video(pixel_values)
+        if vis.shape[0] != input_ids.shape[0]:
+            vis = vis.repeat_interleave(input_ids.shape[0] // vis.shape[0],
+                                        dim=0)
+        logits = self.answer_head(txt_hidden, attention_mask, vis, gen)
+        out = {"logits": logits}
+        if labels is not None:
+            out["loss"] = classification_loss(logits, labels,
+                                              self.head.loss_type)
+        return out
 
 
 class BLIPVideoQA(nn.Module):
@@ -94,9 +171,7 @@ class BLIPVideoQA(nn.Module):
         labels (B,).  Returns f32 ``logits`` (B, num_labels) and, with
         labels, the ``loss``.  ``deterministic=False`` applies the
         dropouts, drawn from ``generator`` (required then)."""
-        if not deterministic and generator is None:
-            raise ValueError("deterministic=False needs a dropout generator")
-        gen = None if deterministic else generator
+        gen = _dropout_generator(deterministic, generator)
         pixel_values = maybe_dequantize(pixel_values, self.dtype)
         b, t = pixel_values.shape[:2]
         repeat = input_ids.shape[0] // b

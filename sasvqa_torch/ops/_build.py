@@ -50,7 +50,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 launch_counts: Dict[str, int] = {name: 0 for name in COUNTERS}
-# nvcc's output per kernel from the last build in this process
+# nvcc's output per kernel from its build, kept beside the library
 # (-Xptxas -v: registers, shared memory, spills)
 build_logs: Dict[str, str] = {}
 
@@ -116,6 +116,9 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
             for name in names:
                 out = library_path(name)
                 if os.path.exists(out):
+                    if os.path.exists(f"{out}.log"):
+                        with open(f"{out}.log") as f:
+                            build_logs[name] = f.read()
                     continue
                 nvcc = nvcc or _nvcc()
                 tmp = f"{out}.{os.getpid()}.tmp"
@@ -133,6 +136,8 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
                     errors.append(f"{name}: nvcc exited {proc.returncode}\n"
                                   f"{log}")
                 else:
+                    with open(f"{out}.log", "w") as f:
+                        f.write(log)
                     os.replace(tmp, out)  # atomic: no half-written library
         finally:
             for proc, _, _ in procs.values():

@@ -1,17 +1,18 @@
-"""Video-QA training/eval entry point for the GIT family on one device
-(counterpart of sasvqa_tpu/tasks/run_video_qa.py):
+"""Video-QA training/eval entry point on one device, for the generative
+GIT family and the CLIP/BLIP classifiers (counterpart of
+sasvqa_tpu/tasks/run_video_qa.py):
 
     python -m sasvqa_torch.tasks.run_video_qa --task msvd_qa \
         --config configs/msvd_qa_base.json
 
 The same config files drive it, with the JAX package's flags, step math
 (reference run_video_qa.py:424-435), validation cadence, answer vocabulary
-and metrics.  It runs on the GPU unless the config sets
-``"platform": "cpu"``.  Not ported yet (each raises
-``NotImplementedError``; ROADMAP.md lists them): the classifier and
-multiple-choice families, a ``mesh_shape`` of more than one device,
-multi-process training, ``n_workers`` > 0 and
-``model.pretrained_weights``.
+and metrics; ``model.pretrained_weights`` names a local HF checkpoint
+that is overlaid on the seeded init.  It runs on the GPU unless the config
+sets ``"platform": "cpu"``.  Not ported yet (each raises
+``NotImplementedError``; ROADMAP.md lists them): multiple choice
+(``task`` action/transition), a ``mesh_shape`` of more than one device,
+multi-process training and ``n_workers`` > 0.
 """
 
 from __future__ import annotations
@@ -42,25 +43,31 @@ from sasvqa_torch.data.frame_store import FrameStoreReader, load_vidmapping
 from sasvqa_torch.data.pipeline import (CollatorPool, DevicePrefetcher,
                                         eval_batch_plan, infinite_batches,
                                         stack_microbatches)
-from sasvqa_torch.data.tokenization import (WordPieceTokenizer,
+from sasvqa_torch.data.tokenization import (CLIPBPETokenizer,
+                                            WordPieceTokenizer,
                                             make_test_wordpiece)
-from sasvqa_torch.models.presets import build_model
+from sasvqa_torch.models.presets import build_model, load_pretrained_params
 from sasvqa_torch.train import steps as train_steps
+from sasvqa_torch.train.retrieval import aggregate_clip_scores
 from sasvqa_torch.utils.basic import get_rounded_percentage, save_json
 
 _NOT_PORTED = "is not ported yet (see ROADMAP.md)"
 
 
 def build_tokenizer(cfg: Mapping[str, Any], family: str):
+    """CLIP's BPE from ``tokenizer_dir``'s vocab.json + merges.txt (the
+    CLIP family), else WordPiece from its vocab.txt; with no
+    ``tokenizer_dir``, the built-in test WordPiece vocab."""
     tok_dir = cfg.get("tokenizer_dir")
-    if family == "clip":
-        raise NotImplementedError(
-            "the CLIP BPE tokenizer comes with the classifier families")
     if tok_dir:
         vocab_txt = os.path.join(tok_dir, "vocab.txt")
+        vocab_json = os.path.join(tok_dir, "vocab.json")
+        if family == "clip" and os.path.exists(vocab_json):
+            return CLIPBPETokenizer.from_files(
+                vocab_json, os.path.join(tok_dir, "merges.txt"))
         if os.path.exists(vocab_txt):
             return WordPieceTokenizer.from_vocab_file(vocab_txt)
-        raise FileNotFoundError(f"no vocab.txt under {tok_dir}")
+        raise FileNotFoundError(f"no vocab files under {tok_dir}")
     LOGGER.warning("no tokenizer_dir configured; using the built-in test "
                    "WordPiece vocab (synthetic runs only)")
     return make_test_wordpiece()
@@ -103,18 +110,26 @@ def setup_datasets(cfg, ans2label, *,
 
 
 def validate(dataset, collator, cfg, tokenizer, ans2label,
-             eval_step: Callable[[Dict[str, Any]], torch.Tensor],
-             eval_score: bool = True, tag: str = "valid") -> Dict[str, Any]:
-    """Generative evaluation (reference validate, run_video_qa.py:283-387):
-    greedy answers for every question of ``dataset``, scored by
-    :func:`evaluate_qa`.
+             eval_step: Callable[[Dict[str, Any]], Any],
+             eval_score: bool = True, tag: str = "valid",
+             family: str = "git",
+             logits_step: Optional[Callable[[Dict[str, Any]],
+                                            torch.Tensor]] = None
+             ) -> Dict[str, Any]:
+    """Evaluation (reference validate, run_video_qa.py:283-387): an answer
+    for every question of ``dataset``, scored by :func:`evaluate_qa`.
+    GIT answers greedily (``eval_step`` returns token ids); a classifier
+    family answers the argmax label (``eval_step`` returns (labels,
+    loss)).
 
     'random'-policy frame draws are seeded per (group, clip), so a
     checkpoint scores the same at any eval batch size or plan padding.
     With ``inference_n_clips`` > 1 each question is answered from that
-    many frame samples and the answers are majority-voted (ties go to the
-    first clip).  One batch is in flight: batch i is dispatched before
-    batch i-1's answers are decoded."""
+    many frame samples: GIT majority-votes the answers (ties go to the
+    first clip); a classifier pools the clips' logits from
+    ``logits_step`` by ``score_agg_func`` (one clip without a
+    ``logits_step``).  One batch is in flight: batch i is dispatched
+    before batch i-1's answers are decoded."""
     st = time.time()
     qa_results: List[Dict[str, Any]] = []
     n_ex = 0
@@ -122,7 +137,17 @@ def validate(dataset, collator, cfg, tokenizer, ans2label,
     # validation at val_batch_size (run_video_qa.py:154-157)
     eval_bs = max(int(cfg.inference_batch_size if cfg.get("do_inference")
                       else cfg.val_batch_size), 1)
+    classifier = family != "git"
     ensemble = int(cfg.get("inference_n_clips", 1))
+    if classifier and logits_step is None:
+        ensemble = 1
+
+    def run(batch):
+        if not classifier:
+            return eval_step(batch)
+        if ensemble > 1:
+            return logits_step(batch)
+        return eval_step(batch)[0]
 
     def clip_rngs(idx, clip: int):
         return [np.random.default_rng((cfg.seed, int(i), clip)) for i in idx]
@@ -142,16 +167,28 @@ def validate(dataset, collator, cfg, tokenizer, ans2label,
         raw = collator(items, rng=clip_rngs(idx_p, 0))
         if raw.get("question_ids") != gqids:
             raise RuntimeError("eval prediction attribution drift")
-        outs = [eval_step(stage(raw))]
+        outs = [run(stage(raw))]
         # extra clips re-run only the collator (frame re-sampling lives
         # there) on the items read above
-        outs += [eval_step(stage(collator(items, rng=clip_rngs(idx_p, c))))
+        outs += [run(stage(collator(items, rng=clip_rngs(idx_p, c))))
                  for c in range(1, ensemble)]
         return gqids, n_real, outs
 
     def consume(pending):
         nonlocal n_ex
         gqids, n_real, outs = pending
+        n_ex += n_real
+        if classifier:
+            if ensemble > 1:
+                preds = aggregate_clip_scores(
+                    torch.stack([o[:n_real].float() for o in outs], dim=-1),
+                    cfg.get("score_agg_func", "mean")).argmax(dim=-1)
+            else:
+                preds = outs[0][:n_real]
+            for qid, p in zip(gqids, preds.cpu().tolist()):
+                qa_results.append(dict(question_id=qid, answer=int(p),
+                                       data=dataset.qid2data[qid]))
+            return
         per_clip = [decode_answers(tokenizer, o.cpu().numpy()[:n_real],
                                    ans2label) for o in outs]
         for i, qid in enumerate(gqids[:n_real]):
@@ -165,7 +202,6 @@ def validate(dataset, collator, cfg, tokenizer, ans2label,
             qa_results.append(dict(question_id=qid, answer=lbl,
                                    answer_str=s,
                                    data=dataset.qid2data[qid]))
-        n_ex += n_real
 
     in_flight = None
     for b_idx, (idx_p, n_real_groups) in enumerate(
@@ -228,19 +264,16 @@ def _check_ported(cfg) -> None:
             torch.distributed.is_initialized():
         raise NotImplementedError(f"multi-process training (M11) "
                                   f"{_NOT_PORTED}")
-    if cfg.model.get("pretrained_weights"):
-        raise NotImplementedError(f"model.pretrained_weights (the local HF "
-                                  f"loader, M7) {_NOT_PORTED}")
     if int(cfg.get("n_workers", 0) or 0) > 0:
         CollatorPool()          # raises: not ported
 
 
 def start_training(cfg, *, open_store: Callable[[str], Any] = FrameStoreReader
                    ) -> Dict[str, Any]:
-    """Train GIT per ``cfg`` with validation on its cadence, then a final
-    validation; returns the final scores, the running train loss and the
-    global step.  ``open_store`` opens the frame stores (default HDF5;
-    see :func:`setup_datasets`)."""
+    """Train the model of ``cfg`` (GIT, CLIP or BLIP) with validation on
+    its cadence, then a final validation; returns the final scores, the
+    running train loss and the global step.  ``open_store`` opens the
+    frame stores (default HDF5; see :func:`setup_datasets`)."""
     platform = cfg.get("platform")
     if platform not in (None, "cpu", "gpu", "cuda"):
         raise ValueError(f"platform {platform!r}: the port runs on 'cpu' "
@@ -266,9 +299,6 @@ def start_training(cfg, *, open_store: Callable[[str], Any] = FrameStoreReader
     dtype = torch.bfloat16 if cfg.get("bf16", True) else torch.float32
     family, model = build_model(cfg, dtype=dtype, device=dev,
                                 generator=init_gen)
-    if family != "git":
-        raise NotImplementedError(f"the {family} family's task loop "
-                                  f"{_NOT_PORTED}")
     tokenizer = build_tokenizer(cfg, family)
     train_ds, val_ds, test_ds = setup_datasets(cfg, ans2label,
                                                open_store=open_store)
@@ -280,6 +310,9 @@ def start_training(cfg, *, open_store: Callable[[str], Any] = FrameStoreReader
     # the JAX package collates one probe group for its init shapes; the
     # draw is kept so that both packages' host streams stay in step
     collator([train_ds.get_group(0)], rng=host_rng)
+    weights_path = cfg.model.get("pretrained_weights")
+    if weights_path:
+        load_pretrained_params(family, model, weights_path)
     state = train_steps.create_train_state(
         model, cfg, total_steps=cfg.num_train_steps, device=dev)
 
@@ -290,9 +323,9 @@ def start_training(cfg, *, open_store: Callable[[str], Any] = FrameStoreReader
     log_file = add_log_to_file(os.path.join(output_dir, "log", "log.txt"))
     previous = {}   # the signal handlers this run replaces
     try:
-        return _run(cfg, model, state, tokenizer, ans2label, collator,
-                    host_rng, (train_ds, val_ds, test_ds), save_steps,
-                    output_dir, dev, previous)
+        return _run(cfg, family, model, state, tokenizer, ans2label,
+                    collator, host_rng, (train_ds, val_ds, test_ds),
+                    save_steps, output_dir, dev, previous)
     finally:
         for sig, handler in previous.items():
             signal.signal(sig, handler)
@@ -300,7 +333,7 @@ def start_training(cfg, *, open_store: Callable[[str], Any] = FrameStoreReader
         log_file.close()
 
 
-def _run(cfg, model, state, tokenizer, ans2label, collator, host_rng,
+def _run(cfg, family, model, state, tokenizer, ans2label, collator, host_rng,
          datasets, save_steps, output_dir, dev, previous) -> Dict[str, Any]:
     """start_training once its log file is open: restore, build the
     steps, validate and train.  Signal handlers it replaces are recorded
@@ -326,18 +359,31 @@ def _run(cfg, model, state, tokenizer, ans2label, collator, host_rng,
     accum = int(cfg.gradient_accumulation_steps)
     use_scan = accum > 1 and bool(cfg.get("scan_accum", 1))
     gmean = bool(cfg.get("accum_grad_mean", 1))
-    train_step = (train_steps.make_scan_train_step(accum, "git",
-                                                   grad_mean=gmean,
-                                                   device=dev)
-                  if use_scan else train_steps.make_git_train_step(dev))
-    eval_step = train_steps.make_git_eval_step(
-        model, max_text_len=cfg.get("gen_max_text_len", 50),
-        max_new_tokens=cfg.get("gen_max_new_tokens"), device=dev)
-    eval_collator = GITCollator(
-        tokenizer, max_txt_len=cfg.max_txt_len,
-        max_seq_len=cfg.get("max_seq_len", cfg.max_txt_len + 12),
-        task_type=cfg.task, nframe=cfg.nframe, samp_policy=cfg.samp_policy,
-        add_ans=False, pixel_dtype=pixel_dtype_for(cfg))
+    logits_step = None
+    if family == "git":
+        train_step = (train_steps.make_scan_train_step(accum, "git",
+                                                       grad_mean=gmean,
+                                                       device=dev)
+                      if use_scan else train_steps.make_git_train_step(dev))
+        eval_step = train_steps.make_git_eval_step(
+            model, max_text_len=cfg.get("gen_max_text_len", 50),
+            max_new_tokens=cfg.get("gen_max_new_tokens"), device=dev)
+        eval_collator = GITCollator(
+            tokenizer, max_txt_len=cfg.max_txt_len,
+            max_seq_len=cfg.get("max_seq_len", cfg.max_txt_len + 12),
+            task_type=cfg.task, nframe=cfg.nframe,
+            samp_policy=cfg.samp_policy, add_ans=False,
+            pixel_dtype=pixel_dtype_for(cfg))
+    else:
+        train_step = (train_steps.make_scan_train_step(
+            accum, "classifier", grad_mean=gmean, device=dev)
+            if use_scan else train_steps.make_classifier_train_step(dev))
+        eval_step = train_steps.make_classifier_eval_step(model, device=dev)
+        eval_collator = collator
+        if int(cfg.get("inference_n_clips", 1)) > 1:
+            logits_step = train_steps.make_classifier_logits_step(
+                model, device=dev)
+    evaluate = dict(family=family, logits_step=logits_step)
 
     LOGGER.info(f"***** training: {cfg.num_train_steps} steps, validate "
                 f"every {cfg.valid_steps}, on {dev} *****")
@@ -350,16 +396,16 @@ def _run(cfg, model, state, tokenizer, ans2label, collator, host_rng,
             ds = val_ds if split == "val" else test_ds
             res = validate(ds, eval_collator, cfg, tokenizer, ans2label,
                            eval_step, eval_score=not split.startswith("test"),
-                           tag=f"{tag_prefix}{split}")
+                           tag=f"{tag_prefix}{split}", **evaluate)
             save_json([{k: v for k, v in r.items() if k != "data"}
                        for r in res["qa_results"]],
                       os.path.join(output_dir, f"qa_results_{split}.json"))
             empty = {"qa_results": [], "scores": {}}
             return (res, empty) if split == "val" else (empty, res)
         res_v = validate(val_ds, eval_collator, cfg, tokenizer, ans2label,
-                         eval_step, tag=f"{tag_prefix}valid")
+                         eval_step, tag=f"{tag_prefix}valid", **evaluate)
         res_t = validate(test_ds, eval_collator, cfg, tokenizer, ans2label,
-                         eval_step, tag=f"{tag_prefix}test")
+                         eval_step, tag=f"{tag_prefix}test", **evaluate)
         return res_v, res_t
 
     if cfg.get("zero_eval"):
@@ -399,6 +445,8 @@ def _train_loop(cfg, state, train_step, train_ds, collator, host_rng,
     # metrics stay device scalars and flush as one stacked transfer at
     # log/validation boundaries: no host sync per step
     pending: List = []
+    # the classifier's train accuracy since the last validation
+    acc = {"correct": 0, "total": 0}
 
     def flush_metrics():
         if not pending:
@@ -416,6 +464,9 @@ def _train_loop(cfg, state, train_step, train_ds, collator, host_rng,
                 cfg, cfg.num_train_steps, gs))
             if "grad_norm" in vals:
                 TB_LOGGER.add_scalar("train/grad_norm", vals["grad_norm"])
+            if "acc_correct" in vals:
+                acc["correct"] += int(vals["acc_correct"])
+                acc["total"] += int(vals["acc_total"])
         pending.clear()
 
     prefetch = None
@@ -480,8 +531,9 @@ def _train_loop(cfg, state, train_step, train_ds, collator, host_rng,
                     or preempted["flag"]):
                 flush_metrics()
             if global_step % log_every == 0:
+                train_acc = acc["correct"] / (acc["total"] + 1e-6)
                 LOGGER.info(f"step {global_step}/{cfg.num_train_steps} "
-                            f"{running_loss} "
+                            f"{running_loss} acc {100 * train_acc:.2f} "
                             f"({(time.time() - t_start):.0f}s)")
             prof_tick(global_step)
             restorer.maybe_save(start_micro + micro, state)
@@ -490,6 +542,7 @@ def _train_loop(cfg, state, train_step, train_ds, collator, host_rng,
                     LOGGER.info("profiling window truncated at a validation "
                                 "boundary")
                     prof_stop()
+                acc.update(correct=0, total=0)
                 # the final step skips the in-loop eval: the final
                 # validation after the loop evaluates the same params
                 if global_step < cfg.num_train_steps:

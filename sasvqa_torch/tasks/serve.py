@@ -12,8 +12,11 @@ requests into fixed-shape batches:
   batches padded by repeating the last request, so every call has one
   shape;
 - GIT decodes greedily and answers with the generated text (label = last
-  word via ans2label); the BLIP classifier answers ``label2ans`` of the
-  argmax label.
+  word via ans2label); the CLIP and BLIP classifiers answer ``label2ans``
+  of the argmax label.
+
+Weights come with the model: a seeded init, overlaid by
+``presets.load_pretrained_params`` with a local HF checkpoint.
 
 The JSONL CLI front of the JAX package decodes videos through stage A,
 which is not ported yet; :func:`serve_requests` is its request loop.
@@ -42,8 +45,8 @@ from sasvqa_torch.train.steps import (make_classifier_eval_step,
 class QAEngine:
     """Micro-batching video-QA inference engine.
 
-    model: a built model (presets.build_model) on ``device``.  family:
-    'git' or 'blip' (CLIP is not ported yet).  ans2label: the answer
+    model: a built model (presets.build_model, weights loaded) on
+    ``device``.  family: 'git', 'clip' or 'blip'.  ans2label: the answer
     vocabulary, required for the classifier, optional for GIT (the
     last-word label).  nframe / samp_policy: the collator's frame
     re-sampling.  The dispatcher thread runs every batch under
@@ -56,9 +59,8 @@ class QAEngine:
                  batch_size: int = 8, linger_ms: float = 5.0,
                  max_txt_len: int = 20, max_text_len: int = 50,
                  pixel_dtype: str = "f32", device: DeviceLike = "cuda"):
-        if family not in ("git", "blip"):
-            raise NotImplementedError(
-                f"serving the {family!r} family is not ported yet")
+        if family not in ("git", "clip", "blip"):
+            raise ValueError(f"unknown model family {family!r}")
         if family != "git" and not ans2label:
             raise ValueError("classifier serving needs an ans2label "
                              "answer vocabulary")

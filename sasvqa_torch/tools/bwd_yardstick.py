@@ -46,6 +46,12 @@ VITL16 = (8, 12, 16 * 257, 32)
 BLIP_TRAIN = (32, 12, 577)            # (B*T, H, L)
 # the card idles this long at both edges of a profiled step
 EDGE_S = 0.05
+# a profiled step's records before its counted calls: small fills, then a
+# marker kernel (torch.cuda._sleep's spin_kernel) of about a microsecond
+LEAD_FILLS = 32
+MARK, MARK_CYCLES = "spin_kernel", 2000
+PROFILER_STATS = {"windows": 0, "incomplete_steps": 0,
+                  "lead_records_lost_max": 0}
 
 
 def cuda_ms(fn: Callable, reps: int, warmup: int = 2) -> float:
@@ -71,17 +77,20 @@ def device_window(fn: Callable, reps: int,
 
     The profiler's warm-up step (its schedule) runs ``fn`` once with
     device tracing already on and discards it, and the card idles for
-    ``EDGE_S`` on both sides of both edges of the recorded step, which
-    holds ``reps`` calls.  Even so the profiler now and then fails to
-    deliver some of a step's kernel records (late in a long process on an
-    H100).  A step is complete when each kernel's count is a multiple of
-    ``reps``; an incomplete one is taken again, up to ``tries`` steps.  If
-    none is complete, each kernel's launches a call come from its largest
-    count, which must lack at most one call's records, and its time a
-    call is its mean time a launch over all steps times those launches
-    (the calls are identical); failing that, it raises.
+    ``EDGE_S`` on both sides of both edges of the recorded step.  Even so
+    the profiler now and then fails to deliver a step's first kernel
+    records (late in a long process on an H100: three of ten, in every
+    step of one window).  So the recorded step runs ``LEAD_FILLS`` small
+    fills and ``reps`` lead calls, then a marker kernel
+    (``torch.cuda._sleep``), then the ``reps`` counted calls, and only
+    the records that start after the marker ends count.  A step is
+    complete when the marker arrived and each kernel's count after it is
+    a multiple of ``reps``; an incomplete one is taken again, up to
+    ``tries`` steps, and then it raises.  ``PROFILER_STATS`` keeps the
+    windows, the incomplete steps and the most lead records lost in one
+    step, for the run's report.
     """
-    seen: Dict[str, list] = {}   # kernel -> [total us, launches, max count]
+    pad = torch.zeros(1, device="cuda")
     for _ in range(tries):
         sched = torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)
         with torch.profiler.profile(
@@ -92,30 +101,39 @@ def device_window(fn: Callable, reps: int,
             time.sleep(EDGE_S)
             prof.step()
             time.sleep(EDGE_S)
+            for _ in range(LEAD_FILLS):
+                pad.zero_()
+            for _ in range(reps):
+                fn()
+            torch.cuda._sleep(MARK_CYCLES)
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
             time.sleep(EDGE_S)
             prof.step()
-        events = [e for e in prof.key_averages()
-                  if e.self_device_time_total > 0]
-        if events and all(e.count % reps == 0 for e in events):
-            names = {e.key: e.self_device_time_total / reps / 1e3
-                     for e in events}
+        events = [e for e in prof.events() if e.self_device_time_total > 0]
+        marks = [e for e in events if MARK in e.name]
+        counted: Dict[str, list] = {}   # kernel -> [total us, records]
+        if marks:
+            t0 = max(m.time_range.end for m in marks)
+            for e in events:
+                if e.time_range.start >= t0:
+                    tot = counted.setdefault(e.key, [0.0, 0])
+                    tot[0] += e.self_device_time_total
+                    tot[1] += 1
+            lead = sum(1 for e in events if e.time_range.end <= t0) - 1
+            PROFILER_STATS["lead_records_lost_max"] = max(
+                PROFILER_STATS["lead_records_lost_max"],
+                LEAD_FILLS + sum(n for _, n in counted.values()) - lead)
+        if counted and all(n % reps == 0 for _, n in counted.values()):
+            PROFILER_STATS["windows"] += 1
+            names = {k: us / reps / 1e3 for k, (us, _) in counted.items()}
             return sum(names.values()), names
-        for e in events:
-            tot = seen.setdefault(e.key, [0.0, 0, 0])
-            tot[0] += e.self_device_time_total
-            tot[1] += e.count
-            tot[2] = max(tot[2], e.count)
-    per_call = {k: -(-most // reps) for k, (_, _, most) in seen.items()}
-    if not seen or any(most < per_call[k] * (reps - 1)
-                       for k, (_, _, most) in seen.items()):
-        raise RuntimeError(f"torch.profiler delivered an incomplete device "
-                           f"trace in {tries} steps of {reps} calls: "
-                           f"{ {k[:60]: v[2] for k, v in seen.items()} }")
-    names = {k: us / n * per_call[k] / 1e3 for k, (us, n, _) in seen.items()}
-    return sum(names.values()), names
+        PROFILER_STATS["incomplete_steps"] += 1
+    raise RuntimeError(f"torch.profiler delivered an incomplete device "
+                       f"trace in {tries} steps of {reps} calls: marker "
+                       f"{'seen' if marks else 'lost'}, "
+                       f"{ {k[:60]: v[1] for k, v in counted.items()} }")
 
 
 def sdpa_backward(q, k, v, do, mask, reps: int) -> dict:

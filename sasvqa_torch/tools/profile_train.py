@@ -1,7 +1,7 @@
 """Where a training update spends its time on the GPU.
 
-    python3 -m sasvqa_torch.tools.profile_train [--shape git|blip|vitl16]
-                                                [--trace DIR]
+    python3 -m sasvqa_torch.tools.profile_train
+        [--shape git|blip|clip|vitl16] [--trace DIR]
 
 Runs ``torch.profiler`` over one ``make_scan_train_step`` update at full
 width (seeded random weights, bf16 activations, f32 params) after one
@@ -13,6 +13,10 @@ warm-up update, at the train phases' shapes of chip_smoke.py:
 - ``blip``: BLIP-base classifier (1000 labels, mlp head, head dropout
   0.1), 4 micro-batches of 8 questions over 4 frames of 384x384 (577
   tokens a frame), text length 20, Adam;
+- ``clip``: CLIP ViT-B/16 classifier at configs/msvd_qa_base3.json's
+  shape (1000 labels, mlp head, head dropout 0.1), 4 micro-batches of 8
+  questions over 1 frame of 224x224 (the config's 'single' sampling),
+  text length 20, Adam;
 - ``vitl16``: GIT with the ViT-L/14 vision tower (the JAX package's
   stretch configuration), remat on, both dropouts 0.1, 2 micro-batches
   of 8 questions over 16 frames of 224x224 (257 tokens a frame), text
@@ -63,6 +67,11 @@ SHAPES = {
                         "betas": [0.9, 0.999], "grad_norm": 5.0,
                         "decay": "constant"}),
 }
+SHAPES["clip"] = dict(
+    SHAPES["blip"], frames=1, img=224,
+    cfg=dict(SHAPES["blip"]["cfg"], model={
+        "pretrained_model": "openai/clip-vit-base-patch16",
+        "hidden_dropout_prob": 0.1}))
 SHAPES["vitl16"] = dict(
     SHAPES["git"], batch=8, frames=16,
     cfg={"model": {"pretrained_model": "microsoft/git-large-msrvtt-qa",

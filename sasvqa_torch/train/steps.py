@@ -33,32 +33,14 @@ import torch
 from torch import nn
 
 from sasvqa_torch.core.device import DeviceLike, resolve_device
+from sasvqa_torch.models.convert import flax_param_names
 from sasvqa_torch.models.git import greedy_generate
-from sasvqa_torch.models.layers import Dense, Embed, LayerNorm
 from sasvqa_torch.train.schedules import Schedule, get_lr_schedule, lr_value
 
 # Flax parameter-path fragments that never get weight decay: every bias
 # and the LayerNorm ``scale`` (the reference's no_decay list); embeddings
 # do decay.  Leaves of fewer than 2 dims never decay either.
 NO_DECAY_FRAGMENTS = ("bias", "scale")
-
-_FLAX_LEAF = ((Dense, "kernel"), (LayerNorm, "scale"), (Embed, "embedding"))
-
-
-def flax_param_names(model: nn.Module) -> Dict[str, str]:
-    """Port parameter name -> the JAX package's dotted parameter path
-    (the port calls the Flax leaves ``kernel``/``scale``/``embedding``
-    ``weight``; every other name is the same)."""
-    out = {}
-    for mod_name, mod in model.named_modules():
-        for leaf, _ in mod.named_parameters(recurse=False):
-            flax_leaf = leaf
-            if leaf == "weight":
-                flax_leaf = next((f for cls, f in _FLAX_LEAF
-                                  if isinstance(mod, cls)), leaf)
-            prefix = f"{mod_name}." if mod_name else ""
-            out[prefix + leaf] = prefix + flax_leaf
-    return out
 
 
 def decay_mask(model: nn.Module) -> Dict[str, bool]:

@@ -722,3 +722,96 @@ def test_k2_launcher_raises_on_what_it_cannot_take(cuda):
     with pytest.raises(ValueError, match="Dh=64"):
         gf._launch_bwd(q32, q32, q32, q32, lse, q32, mask, num_img)
     assert not any(_build.launch_counts.values())
+
+
+# ---- the classifier loop's step on loaded weights -------------------------
+
+
+def _classifier_step_on_loaded_weights(model, family, shapes, tmp_path,
+                                       img, frames=2):
+    """Write a seeded checkpoint in HF's names (``tools.hf_checkpoint``'s
+    generator), load it, check the loaded leaves against it, then run one
+    2-micro adam update of the loop's classifier step; returns the loss
+    and the launch counts of that update."""
+    from sasvqa_torch.models import convert as cv
+    from sasvqa_torch.models.presets import load_pretrained_params
+    from sasvqa_torch.tools import hf_checkpoint as hfc
+    from sasvqa_torch.train.steps import (create_train_state,
+                                          make_scan_train_step)
+    path, sd, _ = hfc.write_hf_checkpoint(str(tmp_path), shapes, 0)
+    report = load_pretrained_params(family, model, path)
+    assert not report["mismatched"]
+    assert report["missing_in_ckpt"] == ["/answer_head"]
+    tc, vc = model.text_config, model.vision_config
+    if family == "clip":
+        converted = cv.convert_clip_video_qa(sd, tc.num_layers,
+                                             vc.num_layers)
+    else:
+        converted = {
+            "txt_model": cv.convert_blip_text(sd, tc.num_layers,
+                                              prefix="text_model"),
+            "vis_model": cv.convert_blip_vision(sd, vc.num_layers,
+                                                prefix="vision_model")}
+    compared, differ = hfc.check_loaded(model, converted)
+    assert compared == len(report["loaded"]) and not differ, differ
+    assert compared == sum(not n.startswith("answer_head.")
+                           for n, _ in model.named_parameters())
+    rng = np.random.default_rng(0)
+    b, l, k = 4, 12, 2
+    batch = {"text_input_ids": rng.integers(3, 500, size=(k, b, l)),
+             "text_attention_mask": np.ones((k, b, l), np.int32),
+             "visual_inputs": rng.standard_normal(
+                 (k, b, frames, img, img, 3), dtype=np.float32),
+             "labels": rng.integers(0, 5, size=(k, b))}
+    state = create_train_state(model, {"optim": "adam",
+                                       "learning_rate": 1e-4,
+                                       "decay": "constant"}, 4, device="cuda")
+    _build.reset_launch_counts()
+    state, metrics = make_scan_train_step(k, "classifier", device="cuda")(
+        state, batch, 0)
+    torch.cuda.synchronize()
+    return metrics["loss"].item(), dict(_build.launch_counts)
+
+
+def test_clip_loop_step_on_loaded_weights(cuda, tmp_path):
+    """tiny-clip in bf16: the loader puts every encoder leaf of a
+    checkpoint in HF CLIPModel names in place, and a classifier update
+    gives a finite loss (the 197-token-or-shorter CLIP path runs no
+    kernel)."""
+    from sasvqa_torch.tools import hf_checkpoint as hfc
+    from sasvqa_torch.models.presets import build_model
+    _, model = build_model({"model": {"pretrained_model": "tiny-clip"},
+                            "img_size": 32, "num_labels": 5,
+                            "classifier": "mlp"}, dtype=torch.bfloat16,
+                           device=cuda)
+    loss, launches = _classifier_step_on_loaded_weights(
+        model, "clip", hfc.hf_clip_shapes(model.text_config,
+                                                 model.vision_config),
+        tmp_path, img=32)
+    assert np.isfinite(loss)
+    assert not any(launches.values()), launches
+
+
+def test_blip_loop_step_on_loaded_weights_runs_k5_k6(cuda, tmp_path):
+    """A 2-layer BLIP with 64-wide heads at 384x384 (577 tokens a frame)
+    in bf16: the loader puts every encoder leaf of a checkpoint in HF
+    BlipModel names in place, and a classifier update gives a finite loss
+    through K5 and K6 in the vision tower."""
+    from sasvqa_torch.tools import hf_checkpoint as hfc
+    from sasvqa_torch.models.blip import BLIPTextConfig, BLIPVisionConfig
+    from sasvqa_torch.models.video_qa import (BLIPVideoQA,
+                                              ClassifierHeadConfig)
+    tc = BLIPTextConfig(vocab_size=512, hidden_size=128,
+                        intermediate_size=256, num_layers=2, num_heads=2,
+                        max_position_embeddings=64, encoder_width=128)
+    vc = BLIPVisionConfig(hidden_size=128, intermediate_size=256,
+                          num_layers=2, num_heads=2)
+    model = BLIPVideoQA(tc, vc, ClassifierHeadConfig(num_labels=5),
+                        dtype=torch.bfloat16).to(cuda)
+    loss, launches = _classifier_step_on_loaded_weights(
+        model, "blip", hfc.hf_blip_shapes(tc, vc), tmp_path,
+        img=vc.image_size, frames=1)
+    assert np.isfinite(loss)
+    # 2 micros x 2 vision layers
+    assert launches["flash_fwd"] == 4, launches
+    assert launches["flash_bwd_dq"] == launches["flash_bwd_dkv"] == 4

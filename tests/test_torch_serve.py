@@ -140,9 +140,14 @@ def test_close_drains_then_refuses_and_fails_stragglers(models):
 
 
 def test_only_git_family_served(models):
+    """The engine takes the three families and refuses any other name; a
+    classifier family (CLIP, BLIP) needs its answer vocabulary."""
     _, _, _, tm = models
-    with pytest.raises(NotImplementedError):
-        tserve.QAEngine(tm, "clip", None, device="cpu")
+    with pytest.raises(ValueError, match="unknown model family"):
+        tserve.QAEngine(tm, "vit", None, device="cpu")
+    for family in ("clip", "blip"):
+        with pytest.raises(ValueError, match="ans2label"):
+            tserve.QAEngine(tm, family, None, device="cpu")
 
 
 def test_serve_requests_keeps_order_and_propagates_decode_errors():

@@ -1,9 +1,11 @@
-"""The port's GIT task loop (config, datasets, input pipeline, checkpoints,
+"""The port's task loop (config, datasets, input pipeline, checkpoints,
 ``validate`` and ``start_training``) vs the JAX package's, on the CPU at
-tiny size (img 32, tiny-git), on ``sasvqa_tpu.data.synthetic`` fixtures:
-the same config, datalists, answer vocabulary, batches, validation
-results and per-update losses; and the port's own snapshots, inference
-restore, preempt-and-resume, prefetcher shutdown and device rule."""
+tiny size (img 32; tiny-git, tiny-blip and tiny-clip, the last from a
+saved HF checkpoint named by ``model.pretrained_weights``), on
+``sasvqa_tpu.data.synthetic`` fixtures: the same config, datalists,
+answer vocabulary, batches, validation results and per-update losses; and
+the port's own snapshots, inference restore, preempt-and-resume,
+prefetcher shutdown, device rule and a classifier overfit gate."""
 
 import json
 import os
@@ -18,6 +20,7 @@ import jax
 import jax.numpy as jnp
 import torch
 
+from sasvqa_tpu.core import logging as jlogging
 from sasvqa_tpu.core.config import ConfigDict as JConfigDict
 from sasvqa_tpu.core.config import get_video_qa_args as jget_args
 from sasvqa_tpu.data import annotations as jann
@@ -31,6 +34,7 @@ from sasvqa_tpu.models import presets as jpresets
 from sasvqa_tpu.tasks import run_video_qa as jrun
 from sasvqa_tpu.train import steps as jsteps
 
+from sasvqa_torch.core import logging as tlogging
 from sasvqa_torch.core.config import ConfigDict, get_video_qa_args
 from sasvqa_torch.data import annotations as tann
 from sasvqa_torch.data import dataset as tds
@@ -40,10 +44,13 @@ from sasvqa_torch.data.tokenization import make_test_wordpiece
 from sasvqa_torch.tasks import run_video_qa as trun
 from sasvqa_torch.train import steps as tsteps
 
-from _torch_parity import load_flax_params
+from _torch_parity import hf_tiny_clip, load_flax_params, save_hf
 
 # the training parity tests' f32 tolerance (tests/test_torch_train.py)
 ATOL, RTOL = 2e-5, 2e-4
+# the JAX-vs-port loops' per-update losses
+LOSS_TOL = 1e-5
+FAMILIES = ("tiny-git", "tiny-blip", "tiny-clip")
 
 
 @pytest.fixture(scope="module")
@@ -80,6 +87,17 @@ def _cfg(paths, out, **overrides):
     return cfg
 
 
+def _family_cfg(model, **overrides):
+    """``_cfg``'s overrides for ``model`` (tiny-git, tiny-blip or
+    tiny-clip): the classifiers with dropout 0 and LogSumExp clip
+    pooling (configs/msvd_qa_base3.json's)."""
+    if model == "tiny-git":
+        return overrides
+    return dict({"model": {"pretrained_model": model, "vocab_size": 512,
+                           "hidden_dropout_prob": 0.0},
+                 "score_agg_func": "lse", "classifier": "mlp"}, **overrides)
+
+
 def _write(cfg, path):
     with open(path, "w") as f:
         json.dump(cfg, f)
@@ -93,7 +111,8 @@ def _args(cfg, path, parse=get_video_qa_args):
 
 def _jax_init(cfg):
     """The params the JAX loop initialises from cfg.seed (the init draws
-    depend on the key and the module tree, not on the probe's values)."""
+    depend on the key and the module tree, not on the probe's values, as
+    long as the probe's frame count is 1 or more)."""
     _, jm = jpresets.build_model(JConfigDict(cfg), dtype=jnp.float32)
     ids = jnp.ones((1, 4), jnp.int32)
     img = cfg["img_size"]
@@ -119,13 +138,24 @@ def jax_init_weights(monkeypatch):
     monkeypatch.setattr(trun, "build_model", build)
 
 
-@pytest.fixture(scope="module")
-def runs(synth, tmp_path_factory):
-    """One JAX loop and one port loop from the same init and config."""
-    root = tmp_path_factory.mktemp("runs")
-    out = {}
+def _loop_pair(model, synth, root):
+    """One JAX loop and one port loop of ``model`` from the same init and
+    config; the tiny-clip loops also overlay a saved HF CLIPModel named by
+    ``model.pretrained_weights`` (each package with its own loader) and
+    validate with 2 clips."""
+    over = _family_cfg(model, zero_eval=1)
+    if model == "tiny-clip":
+        over["model"]["pretrained_weights"] = save_hf(
+            hf_tiny_clip(seed=7), root / "weights", "safetensors")
+        # the loop's multi-clip branch: 2 random frame draws a question,
+        # their logits pooled (tiny-blip takes the 1-clip argmax branch)
+        over.update(inference_n_clips=2, samp_policy="random")
+    out = {"family": model}
     for pkg in ("jax", "port"):
-        cfg = _cfg(synth, root / pkg, zero_eval=1)
+        # each loop starts as in a fresh process: the scalar logger's step
+        # is process-wide in both packages
+        jlogging.TB_LOGGER.global_step = tlogging.TB_LOGGER.global_step = 0
+        cfg = _cfg(synth, root / pkg, **over)
         path = _write(cfg, root / f"{pkg}.json")
         argv = ["--task", "msvd_qa", "--config", path]
         if pkg == "jax":
@@ -146,6 +176,27 @@ def runs(synth, tmp_path_factory):
         out[pkg] = dict(cfg=args, result=result, out=str(root / pkg),
                         path=path)
     return out
+
+
+@pytest.fixture(scope="module")
+def loop_pairs(synth, tmp_path_factory):
+    """model -> its ``_loop_pair``, each run once for the module."""
+    cache = {}
+
+    def get(model):
+        if model not in cache:
+            cache[model] = _loop_pair(model, synth,
+                                      tmp_path_factory.mktemp("runs"))
+        return cache[model]
+
+    return get
+
+
+@pytest.fixture(scope="module")
+def runs(loop_pairs):
+    """The tiny-git pair: the port-only checks of snapshots and restore
+    (plumbing that does not depend on the family)."""
+    return loop_pairs("tiny-git")
 
 
 def test_config_matches_jax(tmp_path):
@@ -225,51 +276,83 @@ def test_first_batches_match(synth):
 
 @pytest.fixture(scope="module")
 def jax_eval(synth, tmp_path_factory):
-    """The JAX eval step, model state and config of the validate tests
-    (one compile for both clip counts)."""
-    base = _cfg(synth, "unused", samp_policy="random", nframe=3,
-                val_batch_size=4)
-    jcfg = _args(base, tmp_path_factory.mktemp("jeval") / "j.json",
-                 jget_args)
-    _, jm = jpresets.build_model(jcfg, dtype=jnp.float32)
-    params = _jax_init(base)
-    return (base, params, jcfg, jsteps.create_train_state(jm, params, jcfg, 1),
-            jsteps.make_git_eval_step(jm, max_new_tokens=4))
+    """family -> the JAX eval steps, model state and config of the
+    validate tests (one compile for both clip counts)."""
+    cache = {}
+
+    def get(model):
+        if model in cache:
+            return cache[model]
+        base = _cfg(synth, "unused", samp_policy="random", nframe=3,
+                    val_batch_size=4, **_family_cfg(model))
+        jcfg = _args(base, tmp_path_factory.mktemp("jeval") / "j.json",
+                     jget_args)
+        _, jm = jpresets.build_model(jcfg, dtype=jnp.float32)
+        params = _jax_init(base)
+        state = jsteps.create_train_state(jm, params, jcfg, 1)
+        if model == "tiny-git":
+            steps = (jsteps.make_git_eval_step(jm, max_new_tokens=4), None)
+        else:
+            steps = (jsteps.make_classifier_eval_step(None),
+                     jsteps.make_classifier_logits_step(None))
+        cache[model] = (base, params, jcfg, state, steps)
+        return cache[model]
+
+    return get
 
 
 @pytest.mark.parametrize("n_clips", [1, 2])
-def test_validate_matches_jax(synth, tmp_path, jax_eval, n_clips):
+@pytest.mark.parametrize("model", FAMILIES)
+def test_validate_matches_jax(synth, tmp_path, jax_eval, model, n_clips):
     """Same weights (the JAX init carried over): identical qa_results and
-    scores, and the port's are the same at eval batch sizes 3 and 4."""
+    scores, and the port's are the same at eval batch sizes 3 and 4.  Two
+    clips: GIT votes the answers, the classifiers pool the logits
+    (LogSumExp)."""
     ours_ds, ref_ds, a2l = _datasets(synth, "val", False)
-    base, params, jcfg, jstate, jstep = jax_eval
+    base, params, jcfg, jstate, (jstep, jlogits) = jax_eval(model)
+    family = model.split("-")[1]
     base = dict(base, inference_n_clips=n_clips)
     jcfg.inference_n_clips = n_clips
-    jcol = jds.GITCollator(jtok(), max_txt_len=16, nframe=3,
-                           samp_policy="random", add_ans=False)
-    ref = jrun.validate(jstate, ref_ds, jcol, jcfg, "git", jtok(), a2l,
-                        jstep, None)
+    if family == "git":
+        jcol = jds.GITCollator(jtok(), max_txt_len=16, nframe=3,
+                               samp_policy="random", add_ans=False)
+        tcol = tds.GITCollator(make_test_wordpiece(), max_txt_len=16,
+                               nframe=3, samp_policy="random", add_ans=False)
+    else:
+        jcol = jds.ClassifierCollator(jtok(), max_txt_len=16, nframe=3,
+                                      samp_policy="random")
+        tcol = tds.ClassifierCollator(make_test_wordpiece(), max_txt_len=16,
+                                      nframe=3, samp_policy="random")
+    ref = jrun.validate(jstate, ref_ds, jcol, jcfg, family, jtok(), a2l,
+                        jstep, None,
+                        logits_step=jlogits if n_clips > 1 else None)
     tcfg = _args(base, tmp_path / "t.json")
     _, tm = trun.build_model(tcfg, device="cpu")
     load_flax_params(tm, params)
-    tcol = tds.GITCollator(make_test_wordpiece(), max_txt_len=16, nframe=3,
-                           samp_policy="random", add_ans=False)
-    step = tsteps.make_git_eval_step(tm, max_new_tokens=4, device="cpu")
+    if family == "git":
+        step = tsteps.make_git_eval_step(tm, max_new_tokens=4, device="cpu")
+        logits_step = None
+    else:
+        step = tsteps.make_classifier_eval_step(tm, device="cpu")
+        logits_step = tsteps.make_classifier_logits_step(tm, device="cpu")
     for bs in (3, 4):
         tcfg.val_batch_size = bs
         res = trun.validate(ours_ds, tcol, tcfg, make_test_wordpiece(), a2l,
-                            step)
+                            step, family=family, logits_step=logits_step)
         assert res["qa_results"] == ref["qa_results"]
         assert res["scores"] == ref["scores"]
     assert {r["question_id"] for r in ref["qa_results"]} == \
         set(ours_ds.qid2data)
 
 
-def test_loop_step_math_losses_and_scores_match_jax(runs):
-    """Both start_training loops from the same init, dropouts 0: equal step
-    math, restore-checkpoint steps and eval snapshots, per-update losses
-    within the f32 tolerance and the same final scores."""
-    j, t = runs["jax"], runs["port"]
+@pytest.mark.parametrize("model", FAMILIES)
+def test_loop_step_math_losses_and_scores_match_jax(loop_pairs, model):
+    """Both start_training loops from the same init (and, for tiny-clip,
+    the same loaded checkpoint), dropouts 0: equal step math,
+    restore-checkpoint steps and eval snapshots, per-update losses within
+    1e-5 and the same final scores."""
+    pair = loop_pairs(model)
+    j, t = pair["jax"], pair["port"]
     for key in ("num_train_steps", "valid_steps"):
         assert t["cfg"][key] == j["cfg"][key]
     assert t["cfg"].num_train_steps == 3 and t["cfg"].valid_steps == 2
@@ -286,12 +369,13 @@ def test_loop_step_math_losses_and_scores_match_jax(runs):
     jl, tl = _scalars(j["out"]), _scalars(t["out"])
     assert sorted(tl) == sorted(jl) == [1, 2, 3]
     np.testing.assert_allclose([tl[s] for s in (1, 2, 3)],
-                               [jl[s] for s in (1, 2, 3)], atol=ATOL,
-                               rtol=RTOL)
+                               [jl[s] for s in (1, 2, 3)], atol=LOSS_TOL,
+                               rtol=LOSS_TOL)
     assert _scalars(t["out"], "train/lr") == _scalars(j["out"], "train/lr")
     # zero_eval: both splits scored before the first update, as in JAX
     for tag in ("zero_valid/overall_acc", "zero_test/overall_acc"):
-        assert _scalars(t["out"], tag) == _scalars(j["out"], tag) == {0: 0}
+        zero = _scalars(t["out"], tag)
+        assert zero == _scalars(j["out"], tag) and set(zero) == {0}
     assert t["result"]["global_step"] == j["result"]["global_step"] == 3
     assert t["result"]["val"] == j["result"]["val"]
     assert t["result"]["test"] == j["result"]["test"]
@@ -379,6 +463,32 @@ def test_preempt_and_resume_continue_the_trajectory(synth, tmp_path,
     assert second["val"] == full["val"]
 
 
+@pytest.mark.parametrize("model", ["tiny-clip", "tiny-blip"])
+def test_classifier_overfits_a_repeated_batch(synth, model):
+    """The convergence gate (VERDICT.md): 40 adam updates on one repeated
+    batch of the synthetic train split (8 questions, answers a function
+    of the question) drive the classifier's CE loss below a tenth of its
+    start and its train accuracy on the batch to 100%."""
+    ds, _, a2l = _datasets(synth, "train", True)
+    cfg = _cfg(synth, "unused", **_family_cfg(model))
+    _, m = trun.build_model(dict(cfg, num_labels=len(a2l)), device="cpu")
+    collator = tds.make_collator("clip", make_test_wordpiece(), cfg)
+    batch = collator([ds.get_group(i) for i in range(len(ds))],
+                     rng=np.random.default_rng(0))
+    batch = {k: batch[k] for k in ("text_input_ids", "text_attention_mask",
+                                   "visual_inputs", "labels")}
+    state = tsteps.create_train_state(
+        m, {"optim": "adam", "learning_rate": 1e-3, "decay": "constant"}, 40,
+        device="cpu")
+    step = tsteps.make_classifier_train_step(device="cpu")
+    losses = []
+    for _ in range(40):
+        state, metrics = step(state, batch, 0)
+        losses.append(metrics["loss"].item())
+    assert losses[-1] < 0.1 * losses[0], losses
+    assert int(metrics["acc_correct"]) == int(metrics["acc_total"]) == 8
+
+
 def test_restore_refuses_another_layout(synth, tmp_path):
     from sasvqa_torch.core.checkpoint import (FormulationMismatchError,
                                               TrainingRestorer)
@@ -430,9 +540,6 @@ def test_platform_unset_needs_a_gpu(synth, tmp_path, monkeypatch):
     ({"task": "action"}, "multiple-choice"),
     ({"mesh_shape": [2]}, "more than one device"),
     ({"n_workers": 2}, "CollatorPool"),
-    ({"model": {"pretrained_model": "tiny-git",
-                "pretrained_weights": "w"}}, "pretrained_weights"),
-    ({"model": {"pretrained_model": "tiny-blip"}}, "blip family"),
 ])
 def test_unported_branches_raise(synth, tmp_path, override, match):
     cfg = dict(_cfg(synth, tmp_path / "out"), **override)
