@@ -36,6 +36,16 @@ its kernels:
   checkpoint, three of them against its raw tensors), then BLIP-base at
   384x384 (6 updates, through K5 and K6, each of whose shapes in the run
   was held against its plain version above);
+- TGIF-QA multiple choice through the same loop (TGIF-format JSONL
+  annotations written here, 5 options a question): ``action`` with
+  BLIP-base at 384x384 (6 updates, K5 and K6, each shape held as above)
+  and ``transition`` with CLIP ViT-B/16 loaded from the same seeded
+  checkpoint (the loader keeps only ``mc_head`` from init);
+- the loop's other single-device options on the CLIP config, 2 updates
+  each: MultiSteps accumulation (``scan_accum: 0``), bf16 Adam moments,
+  adamax, sgd, collation in 2 worker processes (its first batch the
+  same bytes as the thread's) and f32 pixel staging against the default
+  bf16 (the pixel bytes an update of both);
   and a seeded full-width GIT-base checkpoint in HF GitForCausalLM names
   loaded by ``load_pretrained_params`` and served one batch.
 
@@ -53,6 +63,7 @@ with no result, when there is no GPU or any check fails.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import json
 import os
 import re
@@ -66,7 +77,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from sasvqa_torch.data.dataset import ClassifierCollator, GITCollator
+from sasvqa_torch.data.dataset import (ClassifierCollator, GITCollator,
+                                       pixel_dtype_for)
 from sasvqa_torch.data.pipeline import stack_microbatches
 from sasvqa_torch.data.tokenization import make_test_wordpiece
 from sasvqa_torch.models.git import (GITForCausalLM, git_attention_bias,
@@ -1690,24 +1702,38 @@ def _timed_start_training(cfg, root, store, wrap_loader=None):
     them (and the weight loader by ``wrap_loader``); nothing else in the
     loop changes.  Returns the result, the timings, the launch counts of
     the run, its train/loss entries, snapshots and peak memory."""
-    step_s, wait_s, val_s = [], [], []
-    real_step = train_steps.make_scan_train_step
+    step_s, wait_s, val_s, staged = [], [], [], []
+    real_steps = {name: getattr(train_steps, name) for name in STEP_FACTORIES}
     real_validate = run_video_qa.validate
     real_prefetcher = run_video_qa.DevicePrefetcher
     real_loader = run_video_qa.load_pretrained_params
 
-    def timed_step(*a, **kw):
-        step = real_step(*a, **kw)
+    def timed(real):
+        def factory(*a, **kw):
+            step = real(*a, **kw)
 
-        def run(state, batch, seed):
-            t0 = time.perf_counter()
-            out = step(state, batch, seed)
-            torch.cuda.synchronize()
-            step_s.append(time.perf_counter() - t0)
-            return out
-        return run
+            def run(state, batch, seed):
+                t0 = time.perf_counter()
+                out = step(state, batch, seed)
+                torch.cuda.synchronize()
+                step_s.append(time.perf_counter() - t0)
+                return out
+            return run
+        return factory
 
     class TimedPrefetcher(real_prefetcher):
+        def _stage(self, batch):
+            # the staged pixel leaf: its host dtype and bytes, and a hash
+            # of the first micro-batch's bytes (of a stacked batch, the
+            # first of its K micros)
+            px = batch["visual_inputs"]
+            first = px[0] if px.ndim == 6 else px
+            staged.append({"dtype": str(px.dtype), "nbytes": px.nbytes,
+                           "ndim": px.ndim, "sha1": None if staged else
+                           hashlib.sha1(np.ascontiguousarray(first)
+                                        .tobytes()).hexdigest()})
+            return super()._stage(batch)
+
         def __next__(self):
             t0 = time.perf_counter()
             try:
@@ -1725,7 +1751,8 @@ def _timed_start_training(cfg, root, store, wrap_loader=None):
     with open(path, "w") as f:
         json.dump(cfg, f)
     args = run_video_qa.get_video_qa_args(["--config", path])
-    train_steps.make_scan_train_step = timed_step
+    for name, real in real_steps.items():
+        setattr(train_steps, name, timed(real))
     run_video_qa.DevicePrefetcher = TimedPrefetcher
     run_video_qa.validate = timed_validate
     if wrap_loader is not None:
@@ -1741,21 +1768,44 @@ def _timed_start_training(cfg, root, store, wrap_loader=None):
         wall = time.perf_counter() - t0
         launches = dict(_build.launch_counts)
     finally:
-        train_steps.make_scan_train_step = real_step
+        for name, real in real_steps.items():
+            setattr(train_steps, name, real)
         run_video_qa.DevicePrefetcher = real_prefetcher
         run_video_qa.validate = real_validate
         run_video_qa.load_pretrained_params = real_loader
     out = cfg["output_dir"]
     with open(os.path.join(out, "log", "scalars.jsonl")) as f:
         scalars = [json.loads(line) for line in f]
+    restore_files = sorted(os.listdir(os.path.join(out, "restore")),
+                           key=lambda n: int(re.findall(r"\d+", n)[0]))
+    restored = torch.load(os.path.join(out, "restore", restore_files[-1]),
+                          map_location="cpu", weights_only=True,
+                          mmap=True) if restore_files else None
     return {"result": result, "launches": launches, "wall_s": wall,
             "step_s": step_s, "wait_s": wait_s, "val_s": val_s,
+            "staged": staged, "pixel_staging": pixel_dtype_for(args),
+            "restored": None if restored is None else {
+                "optimizer": restored["layout"]["optimizer"],
+                "updates": _update_count(restored["opt_state"]),
+                "micro_step": restored["step"]},
             "losses": [r["value"] for r in scalars
                        if r["tag"] == "train/loss"],
             "ckpt": sorted(os.listdir(os.path.join(out, "ckpt"))),
             "restore": sorted(os.listdir(os.path.join(out, "restore"))),
             "max_memory_allocated_gb":
                 torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
+# the loop's train-step factories, each wrapped to time its calls
+STEP_FACTORIES = ("make_scan_train_step", "make_git_train_step",
+                  "make_classifier_train_step", "make_mc_train_step")
+
+
+def _update_count(opt_state):
+    """Optimizer updates in a restore snapshot's optimizer state (a
+    MultiSteps state holds its inner optimizer's)."""
+    return int(opt_state["inner"]["count"] if "inner" in opt_state
+               else opt_state["count"])
 
 
 def phase_task_loop():
@@ -1793,6 +1843,7 @@ def phase_task_loop():
            "config": "configs/msvd_qa_base.json + " + json.dumps(
                {k: v for k, v in TASK["overrides"].items() if k != "model"}),
            "seq_len": s_len, "frames": TASK["stored_frames"],
+           "pixel_staging": run["pixel_staging"],
            "backward_route": bwd_kernels(),
            "updates": result["global_step"], "setup_s": setup_s,
            "wall_s": wall, "update_s": step_s,
@@ -1918,8 +1969,11 @@ def _classifier_loop_row(name, cfg, run, setup_s, frames):
     return {"phase": name, "model": cfg["model"]["pretrained_model"],
             "config": "configs/msvd_qa_base3.json + " + json.dumps(
                 {k: v for k, v in cfg.items()
-                 if k in ("num_train_epochs", "img_size")}),
+                 if k in ("num_train_epochs", "img_size", "task",
+                          "max_txt_len", "save_steps_ratio")}),
             "frames_per_question": frames, "img": cfg["img_size"],
+            "pixel_staging": run["pixel_staging"],
+            "pixel_bytes_per_update": _pixel_bytes_per_update(cfg, run),
             "questions_per_update": per_update,
             "updates": run["result"]["global_step"], "setup_s": setup_s,
             "wall_s": run["wall_s"], "update_s": run["step_s"],
@@ -1938,6 +1992,15 @@ def _classifier_loop_row(name, cfg, run, setup_s, frames):
             "launches": run["launches"]}
 
 
+def _pixel_bytes_per_update(cfg, run):
+    """Host pixel bytes copied to the card an update: the first staged
+    batch's, times the micros of an update when the batches are not
+    stacked (stacked ones carry the K micros)."""
+    first = run["staged"][0]
+    return first["nbytes"] * (1 if first["ndim"] == 6
+                              else cfg["gradient_accumulation_steps"])
+
+
 def _check_classifier_loop(name, run, updates):
     losses, result = run["losses"], run["result"]
     check(result["global_step"] == updates and len(losses) == updates
@@ -1949,72 +2012,145 @@ def _check_classifier_loop(name, run, updates):
           f"{name}: a final score dict is missing")
 
 
-def phase_clip_task_loop():
+def clip_checkpoint(root):
+    """A seeded full-width checkpoint of configs/msvd_qa_base3.json's
+    CLIP ViT-B/16 in HF CLIPModel names under ``root`` (the clip_task_loop
+    and mc_clip_task_loop load it)."""
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "configs", "msvd_qa_base3.json")) as f:
+        name = json.load(f)["model"]["pretrained_model"]
+    tc, vc = _clip_configs(name.lower())
+    weights, sd, write_s = write_hf_checkpoint(
+        os.path.join(root, "weights"), hf_clip_shapes(tc, vc), seed=0)
+    return {"dir": weights, "sd": sd, "write_s": write_s, "tc": tc,
+            "vc": vc, "bytes": os.path.getsize(
+                os.path.join(weights, "pytorch_model.bin"))}
+
+
+def _clip_loader_probe(ckpt, loads):
+    """A wrapper of the loop's weight loader that times the load and
+    checks every converted leaf of ``ckpt`` (and three raw tensors) in the
+    loaded model; appends what it saw to ``loads``."""
+    def wrap(real):
+        def load(family, model, path):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            report = real(family, model, path)
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+            converted = cv.convert_clip_video_qa(
+                ckpt["sd"], ckpt["tc"].num_layers, ckpt["vc"].num_layers)
+            loads.append({"loader_s": load_s, "report": report,
+                          "check": check_loaded(model, converted),
+                          "raw": _clip_raw_checks(model, ckpt["sd"]),
+                          "family": family})
+            return report
+        return load
+    return wrap
+
+
+def _clip_tokenizer(cfg, root, texts_of=lambda r: [r["question"]]):
+    """A BPE vocabulary of every text of the config's splits under
+    ``root``/tokenizer; ``texts_of`` reads one annotation's texts."""
+    texts = []
+    for split in ("train", "val", "test"):
+        texts += [t for r in _read_annotations(_split_path(cfg, split))
+                  for t in texts_of(r)]
+    return write_clip_bpe_files(os.path.join(root, "tokenizer"), texts)
+
+
+def _read_annotations(path):
+    """A JSON list or a JSONL file of annotations."""
+    with open(path) as f:
+        if path.endswith(".jsonl"):
+            return [json.loads(line) for line in f if line.strip()]
+        return json.load(f)
+
+
+def _clip_load_row(name, loads):
+    """What the loop's one load of the checkpoint did."""
+    check(len(loads) == 1 and loads[0]["family"] == "clip",
+          f"{name}: the loader ran {len(loads)} times")
+    load = loads[0]
+    report, (compared, differ) = load["report"], load["check"]
+    return {"loader_s": load["loader_s"], "loaded": len(report["loaded"]),
+            "missing_in_ckpt": report["missing_in_ckpt"],
+            "mismatched": report["mismatched"], "leaves_checked": compared,
+            "leaves_differing": differ, "raw_checks": load["raw"]}
+
+
+def _check_clip_load(name, row, head):
+    """Every converted leaf holds the checkpoint's bits and only ``head``
+    was kept from init."""
+    check(not row["mismatched"] and row["missing_in_ckpt"] == [head]
+          and row["leaves_checked"] == row["loaded"] > 0
+          and not row["leaves_differing"] and all(row["raw_checks"].values()),
+          f"{name}: the loaded weights are not the checkpoint's: "
+          f"{row['mismatched']} {row['missing_in_ckpt']} "
+          f"{row['leaves_checked']} {row['leaves_differing'][:5]} "
+          f"{row['raw_checks']}")
+
+
+def phase_clip_task_loop(ckpt):
     """``start_training`` on configs/msvd_qa_base3.json at full width
-    (CLIP ViT-B/16), its ``model.pretrained_weights`` a seeded checkpoint
-    in HF CLIPModel names that the loop loads (every converted leaf checked
-    against the checkpoint right after the load), its ``tokenizer_dir`` a
-    BPE vocabulary of its questions: 6 updates and the final
-    validation."""
+    (CLIP ViT-B/16), its ``model.pretrained_weights`` the seeded
+    checkpoint ``ckpt`` in HF CLIPModel names that the loop loads (every
+    converted leaf checked against the checkpoint right after the load),
+    its ``tokenizer_dir`` a BPE vocabulary of its questions: 6 updates and
+    the final validation."""
     t_setup = time.perf_counter()
     store = _memory_store(CLIP_TASK)
     with tempfile.TemporaryDirectory() as root:
         cfg = _base3_cfg(root, CLIP_TASK)
-        tc, vc = _clip_configs(cfg["model"]["pretrained_model"].lower())
-        weights, sd, write_s = write_hf_checkpoint(
-            os.path.join(root, "weights"), hf_clip_shapes(tc, vc), seed=0)
-        cfg["model"]["pretrained_weights"] = weights
-        texts = []
-        for split in ("train", "val", "test"):
-            with open(_split_path(cfg, split)) as f:
-                texts += [r["question"] for r in json.load(f)]
-        cfg["tokenizer_dir"] = write_clip_bpe_files(
-            os.path.join(root, "tokenizer"), texts)
+        cfg["model"]["pretrained_weights"] = ckpt["dir"]
+        cfg["tokenizer_dir"] = _clip_tokenizer(cfg, root)
         loads = []
-
-        def wrap(real):
-            def load(family, model, path):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                report = real(family, model, path)
-                torch.cuda.synchronize()
-                load_s = time.perf_counter() - t0
-                converted = cv.convert_clip_video_qa(
-                    sd, tc.num_layers, vc.num_layers)
-                loads.append({"loader_s": load_s, "report": report,
-                              "check": check_loaded(model, converted),
-                              "raw": _clip_raw_checks(model, sd),
-                              "family": family})
-                return report
-            return load
-
-        ckpt_bytes = os.path.getsize(os.path.join(weights,
-                                                  "pytorch_model.bin"))
         torch.cuda.synchronize()
         setup_s = time.perf_counter() - t_setup
-        run = _timed_start_training(cfg, root, store, wrap_loader=wrap)
-    check(len(loads) == 1 and loads[0]["family"] == "clip",
-          f"clip task loop: the loader ran {len(loads)} times")
-    load = loads[0]
-    report, (compared, differ) = load["report"], load["check"]
+        run = _timed_start_training(cfg, root, store,
+                                    wrap_loader=_clip_loader_probe(ckpt,
+                                                                   loads))
     row = _classifier_loop_row("clip_task_loop", cfg, run, setup_s, 1)
-    row.update(checkpoint_bytes=ckpt_bytes, checkpoint_write_s=write_s,
-               loader_s=load["loader_s"], loaded=len(report["loaded"]),
-               missing_in_ckpt=report["missing_in_ckpt"],
-               mismatched=report["mismatched"],
-               leaves_checked=compared, leaves_differing=differ,
-               raw_checks=load["raw"])
+    row.update(checkpoint_bytes=ckpt["bytes"],
+               checkpoint_write_s=ckpt["write_s"],
+               **_clip_load_row("clip task loop", loads))
     emit(row)
     _check_classifier_loop("clip task loop", run, CLASSIFIER_UPDATES)
-    check(not report["mismatched"]
-          and report["missing_in_ckpt"] == ["/answer_head"]
-          and compared == len(report["loaded"]) > 0 and not differ
-          and all(load["raw"].values()),
-          f"clip task loop: the loaded weights are not the checkpoint's: "
-          f"{report['mismatched']} {report['missing_in_ckpt']} "
-          f"{compared} {differ[:5]} {load['raw']}")
+    _check_clip_load("clip task loop", row, "/answer_head")
     torch.cuda.empty_cache()
     return row, run["launches"]
+
+
+class FlashShapes:
+    """While active, records the (B, H, Lq, Lk, bias kind) of every K5
+    (``fwd``) and K6 (``bwd``) call, so that each is held against its
+    plain version."""
+
+    def __init__(self):
+        self.shapes = {"fwd": set(), "bwd": set()}
+
+    @staticmethod
+    def _key(q, k, bias):
+        return tuple(q.shape[:3]) + (k.shape[2],
+                                     None if bias is None else "bias")
+
+    def __enter__(self):
+        real_fwd, real_bwd = fa.flash_forward, fa.flash_backward
+        self._real = real_fwd, real_bwd
+
+        def fwd(q, k, v, bias=None):
+            self.shapes["fwd"].add(self._key(q, k, bias))
+            return real_fwd(q, k, v, bias)
+
+        def bwd(q, k, v, o, lse, do, bias=None):
+            self.shapes["bwd"].add(self._key(q, k, bias))
+            return real_bwd(q, k, v, o, lse, do, bias)
+
+        fa.flash_forward, fa.flash_backward = fwd, bwd
+        return self
+
+    def __exit__(self, *exc):
+        fa.flash_forward, fa.flash_backward = self._real
 
 
 def phase_blip_task_loop():
@@ -2023,21 +2159,6 @@ def phase_blip_task_loop():
     K5 and K6 in the vision tower.  Also returns the (B, H, Lq, Lk, bias
     kind) of every K5 and every K6 call in the run, so that each is held
     against its plain version."""
-    shapes = {"fwd": set(), "bwd": set()}
-    real_fwd, real_bwd = fa.flash_forward, fa.flash_backward
-
-    def key(q, k, bias):
-        return tuple(q.shape[:3]) + (k.shape[2],
-                                     None if bias is None else "bias")
-
-    def fwd(q, k, v, bias=None):
-        shapes["fwd"].add(key(q, k, bias))
-        return real_fwd(q, k, v, bias)
-
-    def bwd(q, k, v, o, lse, do, bias=None):
-        shapes["bwd"].add(key(q, k, bias))
-        return real_bwd(q, k, v, o, lse, do, bias)
-
     t_setup = time.perf_counter()
     store = _memory_store(BLIP_TASK)
     with tempfile.TemporaryDirectory() as root:
@@ -2049,20 +2170,232 @@ def phase_blip_task_loop():
         cfg.pop("tokenizer_dir")
         torch.cuda.synchronize()
         setup_s = time.perf_counter() - t_setup
-        fa.flash_forward, fa.flash_backward = fwd, bwd
-        try:
+        with FlashShapes() as rec:
             run = _timed_start_training(cfg, root, store)
-        finally:
-            fa.flash_forward, fa.flash_backward = real_fwd, real_bwd
     row = _classifier_loop_row("blip_task_loop", cfg, run, setup_s, 1)
-    row["flash_shapes"] = {part: sorted(v) for part, v in shapes.items()}
+    row["flash_shapes"] = {part: sorted(v) for part, v in rec.shapes.items()}
     emit(row)
     _check_classifier_loop("blip task loop", run, CLASSIFIER_UPDATES)
     check(all(run["launches"][n] > 0 for n in
               ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")),
           f"blip task loop: K5 or K6 was not launched: {run['launches']}")
     torch.cuda.empty_cache()
-    return row, run["launches"], shapes
+    return row, run["launches"], rec.shapes
+
+
+# TGIF-QA multiple choice through the same loop: configs/msvd_qa_base3.json
+# with task action (BLIP-base at 384x384, seeded weights, the built-in
+# WordPiece vocab) or transition (CLIP ViT-B/16 from the clip_task_loop's
+# checkpoint, a BPE vocabulary of its questions and options): TGIF-format
+# JSONL annotations (gif_name, question, 5 options, the answer's index),
+# 96 GIFs of 2 questions, one epoch of 6 updates of 4 micros of 8 questions
+# (40 question+option rows a micro), 16 val and 16 test questions, one
+# restore snapshot at the end (save_steps_ratio 1; the shipped 0.01 writes
+# one after every update at this depth, about 6 s each).  The
+# built-in WordPiece vocab splits words into pieces: BLIP's rows take 40
+# tokens, which hold question and option (at most 31)
+MC_BLIP_TASK = dict(BLIP_TASK, task="action", val=16, test=16,
+                    overrides=dict(BLIP_TASK["overrides"], max_txt_len=40,
+                                   save_steps_ratio=1.0))
+MC_CLIP_TASK = dict(CLIP_TASK, task="transition", val=16, test=16,
+                    overrides=dict(CLIP_TASK["overrides"],
+                                   save_steps_ratio=1.0))
+MC_SUBJECTS = ["man", "woman", "girl", "boy", "dog", "cat"]
+MC_VERBS = ["jumps", "waves", "runs", "claps", "spins", "nods", "smiles",
+            "turns", "sits", "laughs"]
+
+
+def _mc_task_files(root, spec):
+    """TGIF-format JSONL annotations of ``spec``'s GIFs (5 options a
+    question, the answer an option index) and a vidmapping under
+    ``root``; returns the config's path overrides."""
+    task, n_opt = spec["task"], 5
+    vids = [f"gif{i:04d}" for i in range(spec["videos"])]
+
+    def annos(n_per_video, videos):
+        rows = []
+        for i, vid in enumerate(videos):
+            for j in range(n_per_video):
+                k = 3 * i + j
+                who = MC_SUBJECTS[k % len(MC_SUBJECTS)]
+                question = (f"what does the {who} do "
+                            + ("after the video starts" if task ==
+                               "transition" else "in the video"))
+                rows.append({
+                    "gif_name": vid, "question": question,
+                    "options": [f"{who} {MC_VERBS[(k + o) % len(MC_VERBS)]}"
+                                for o in range(n_opt)],
+                    "answer": k % n_opt})
+        return rows
+
+    paths = {}
+    for split, rows in (("train", annos(spec["questions"], vids)),
+                        ("val", annos(1, vids[:spec["val"]])),
+                        ("test", annos(1, vids[-spec["test"]:]))):
+        paths[split] = os.path.join(root, f"{task}_{split}.jsonl")
+        with open(paths[split], "w") as f:
+            f.writelines(json.dumps(r) + "\n" for r in rows)
+    paths["vidmapping"] = os.path.join(root, "vidmapping.json")
+    with open(paths["vidmapping"], "w") as f:
+        json.dump({v: i for i, v in enumerate(vids)}, f)
+    return {"task": task,
+            "train_datasets": [{"name": task, "txt": paths["train"],
+                                "img": "memory"}],
+            "val_datasets": [{"name": task, "txt": paths["val"],
+                              "img": "memory"}],
+            "inference_txt_db": paths["test"], "inference_img_db": "memory",
+            "vid_mapping": paths["vidmapping"]}
+
+
+def _mc_cfg(root, spec):
+    cfg = _base3_cfg(root, spec)
+    cfg.update(_mc_task_files(root, spec))
+    return cfg
+
+
+def _check_mc_loop(name, run, updates):
+    _check_classifier_loop(name, run, updates)
+    for split in ("val", "test"):
+        check(set(run["result"][split]) == {"overall_acc"},
+              f"{name}: multiple choice scores {run['result'][split]}")
+
+
+def _mc_row(name, cfg, run, setup_s):
+    row = _classifier_loop_row(name, cfg, run, setup_s, 1)
+    row["option_rows_per_update"] = row["questions_per_update"] * 5
+    row["option_rows_per_s"] = row["qa_pairs_per_s"] * 5
+    return row
+
+
+def phase_mc_blip_task_loop():
+    """TGIF-QA action multiple choice in ``start_training`` with BLIP-base
+    at 384x384 (seeded weights): 6 updates of 4 micros of 8 GIFs x 5
+    options and the final validation, through K5 and K6 in the vision
+    tower; returns the K5/K6 shapes of the run too."""
+    t_setup = time.perf_counter()
+    store = _memory_store(MC_BLIP_TASK)
+    with tempfile.TemporaryDirectory() as root:
+        cfg = _mc_cfg(root, MC_BLIP_TASK)
+        cfg["model"]["pretrained_model"] = MC_BLIP_TASK["model"]
+        cfg["model"].pop("pretrained_weights")
+        cfg.pop("tokenizer_dir")
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t_setup
+        with FlashShapes() as rec:
+            run = _timed_start_training(cfg, root, store)
+    row = _mc_row("mc_blip_task_loop", cfg, run, setup_s)
+    row["flash_shapes"] = {part: sorted(v) for part, v in rec.shapes.items()}
+    emit(row)
+    _check_mc_loop("mc blip task loop", run, CLASSIFIER_UPDATES)
+    check(all(run["launches"][n] > 0 for n in
+              ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")),
+          f"mc blip task loop: K5 or K6 was not launched: {run['launches']}")
+    torch.cuda.empty_cache()
+    return row, run["launches"], rec.shapes
+
+
+def phase_mc_clip_task_loop(ckpt):
+    """TGIF-QA transition multiple choice in ``start_training`` with CLIP
+    ViT-B/16 loaded from ``ckpt`` (the loader's report: only ``mc_head``
+    kept from init) and a BPE vocabulary of its questions and options: 6
+    updates and the final validation."""
+    t_setup = time.perf_counter()
+    store = _memory_store(MC_CLIP_TASK)
+    with tempfile.TemporaryDirectory() as root:
+        cfg = _mc_cfg(root, MC_CLIP_TASK)
+        cfg["model"]["pretrained_weights"] = ckpt["dir"]
+        cfg["tokenizer_dir"] = _clip_tokenizer(
+            cfg, root, lambda r: [r["question"]] + r["options"])
+        loads = []
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t_setup
+        run = _timed_start_training(cfg, root, store,
+                                    wrap_loader=_clip_loader_probe(ckpt,
+                                                                   loads))
+    row = _mc_row("mc_clip_task_loop", cfg, run, setup_s)
+    row.update(**_clip_load_row("mc clip task loop", loads))
+    emit(row)
+    _check_mc_loop("mc clip task loop", run, CLASSIFIER_UPDATES)
+    _check_clip_load("mc clip task loop", row, "/mc_head")
+    torch.cuda.empty_cache()
+    return row, run["launches"]
+
+
+# the loop's other single-device options on configs/msvd_qa_base3.json
+# (CLIP ViT-B/16, seeded weights, the built-in WordPiece vocab): 32 videos
+# of 2 questions, one epoch of 2 updates of 4 micros of 8 questions; one
+# restore snapshot a run (save_steps_ratio 1)
+OPTIONS_TASK = dict(videos=32, questions=2, stored_frames=4, img=224, val=8,
+                    test=8, overrides={"num_train_epochs": 1,
+                                       "save_steps_ratio": 1.0})
+LOOP_OPTIONS = {
+    "multisteps": {"scan_accum": 0},
+    "adamw_bf16_moments": {"optim": "adamw", "adamw_moment_dtype": "bf16"},
+    "adamax": {"optim": "adamax"},
+    "sgd": {"optim": "sgd"},
+    "collator_pool": {"n_workers": 2},
+    "f32_staging": {"stage_pixels_bf16": 0}}
+OPTIONS_UPDATES = 2
+
+
+def phase_loop_options():
+    """``start_training`` under each of LOOP_OPTIONS: finite losses, the
+    update count and the optimizer in the restore snapshot, the first
+    batch's pixel bytes equal in every run (the pool's too), and the
+    pixel bytes an update under bf16 and f32 staging."""
+    store = _memory_store(OPTIONS_TASK)
+    runs = {}
+    for name, over in LOOP_OPTIONS.items():
+        with tempfile.TemporaryDirectory() as root:
+            cfg = _base3_cfg(root, OPTIONS_TASK)
+            cfg["model"].pop("pretrained_weights")
+            cfg.pop("tokenizer_dir")
+            cfg.update(over)
+            run = _timed_start_training(cfg, root, store)
+        runs[name] = {
+            "options": over, "updates": run["result"]["global_step"],
+            "losses": run["losses"], "wall_s": run["wall_s"],
+            "step_calls_s": run["step_s"],
+            "restore": run["restored"], "pixel_staging": run["pixel_staging"],
+            "first_batch_sha1": run["staged"][0]["sha1"],
+            "pixel_bytes_per_update": _pixel_bytes_per_update(cfg, run),
+            "max_memory_allocated_gb": run["max_memory_allocated_gb"],
+            "val": run["result"]["val"]}
+        torch.cuda.empty_cache()
+    row = {"phase": "loop_options", "model": "openai/clip-vit-base-patch16",
+           "config": "configs/msvd_qa_base3.json + " + json.dumps(
+               OPTIONS_TASK["overrides"]), "runs": runs,
+           "pixel_bytes_per_update": {
+               "bf16": runs["adamax"]["pixel_bytes_per_update"],
+               "f32": runs["f32_staging"]["pixel_bytes_per_update"]}}
+    emit(row)
+    kinds = {"multisteps": "multisteps(adam)",
+             "adamw_bf16_moments": "adamw/bf16", "adamax": "adamax",
+             "sgd": "sgd", "collator_pool": "adam", "f32_staging": "adam"}
+    for name, r in runs.items():
+        check(r["updates"] == OPTIONS_UPDATES
+              and len(r["losses"]) == OPTIONS_UPDATES
+              and all(np.isfinite(r["losses"])),
+              f"loop options {name}: updates {r['updates']}, losses "
+              f"{r['losses']}")
+        check(r["restore"] is not None
+              and r["restore"]["optimizer"] == kinds[name]
+              and r["restore"]["updates"] == OPTIONS_UPDATES,
+              f"loop options {name}: restore snapshot {r['restore']}")
+        check(r["pixel_staging"] == ("f32" if name == "f32_staging"
+                                     else "bf16"),
+              f"loop options {name}: staged {r['pixel_staging']}")
+    check(len(runs["multisteps"]["step_calls_s"]) == 4 * OPTIONS_UPDATES,
+          f"loop options: MultiSteps took "
+          f"{len(runs['multisteps']['step_calls_s'])} step calls")
+    check(len({r["first_batch_sha1"] for r in runs.values()
+               if r["pixel_staging"] == "bf16"}) == 1,
+          "loop options: the first batch differs between runs (the pool's "
+          "against the thread's)")
+    bpu = row["pixel_bytes_per_update"]
+    check(bpu["f32"] == 2 * bpu["bf16"],
+          f"loop options: pixel bytes an update {bpu}")
+    return row
 
 
 def phase_git_load():
@@ -2131,7 +2464,7 @@ def phase_git_load():
 
 PATHS = ("git_serve", "git_train", "blip_serve", "blip_train",
          "vitl16_grad_check", "task_loop", "clip_task_loop",
-         "blip_task_loop")
+         "blip_task_loop", "mc_blip_task_loop", "mc_clip_task_loop")
 KERNELS = ("git_flash_fwd", "git_flash_bwd", "git_flash_bwd_dq",
            "git_flash_bwd_dkv", _build.HASH_DROPOUT, "flash_fwd",
            "flash_bwd_dq", "flash_bwd_dkv")
@@ -2182,8 +2515,14 @@ def main() -> int:
     split_rows, crossover = phase_split_kernels(rate)
     vitl16_row, vitl16 = phase_vitl16_grad_check()
     task_row, task = phase_task_loop()
-    clip_row, clip_task = phase_clip_task_loop()
-    blip_task_row, blip_task, blip_task_shapes = phase_blip_task_loop()
+    with tempfile.TemporaryDirectory() as ckpt_root:
+        ckpt = clip_checkpoint(ckpt_root)
+        clip_row, clip_task = phase_clip_task_loop(ckpt)
+        blip_task_row, blip_task, blip_task_shapes = phase_blip_task_loop()
+        mc_blip_row, mc_blip, mc_blip_shapes = phase_mc_blip_task_loop()
+        mc_clip_row, mc_clip = phase_mc_clip_task_loop(ckpt)
+        del ckpt
+    phase_loop_options()
     phase_git_load()
     # device-time windows taken, profiler steps taken again, lead records lost
     emit({"phase": "profiler", **PROFILER_STATS})
@@ -2191,7 +2530,7 @@ def main() -> int:
     by_path = {name: dict(zip(PATHS, (counts.get(name, 0) for counts in
                                       (git_serve, git_train, blip_serve,
                                        blip_train, vitl16, task, clip_task,
-                                       blip_task))))
+                                       blip_task, mc_blip, mc_clip))))
                for name in KERNELS}
     needed = {"git_serve": ("git_flash_fwd",),
               "git_train": ("git_flash_fwd", _build.HASH_DROPOUT)
@@ -2207,17 +2546,22 @@ def main() -> int:
               # flash route's 512: its path runs no kernel
               "clip_task_loop": (),
               "blip_task_loop": ("flash_fwd", "flash_bwd_dq",
-                                 "flash_bwd_dkv")}
+                                 "flash_bwd_dkv"),
+              "mc_blip_task_loop": ("flash_fwd", "flash_bwd_dq",
+                                    "flash_bwd_dkv"),
+              "mc_clip_task_loop": ()}
     check(all(by_path[k][path] > 0 for path, ks in needed.items()
               for k in ks),
           f"a kernel of a path was not launched: {by_path}")
-    # every K5 and K6 shape of the BLIP task loop was held against its
+    # every K5 and K6 shape of the BLIP task loops was held against its
     # plain version in the flash kernel phase
     held = {"fwd": {c[:5] for c in flash_cases.values()},
             "bwd": {c[:5] for c in flash_cases.values() if c[5]}}
-    check(all(blip_task_shapes[p] <= held[p] for p in held),
-          f"blip task loop: a K5/K6 shape was not held against its plain "
-          f"version: {blip_task_shapes}, held {held}")
+    for name, shapes in (("blip task loop", blip_task_shapes),
+                         ("mc blip task loop", mc_blip_shapes)):
+        check(all(shapes[p] <= held[p] for p in held),
+              f"{name}: a K5/K6 shape was not held against its plain "
+              f"version: {shapes}, held {held}")
 
     serve, main_t = kernel_rows[0], train_rows[0]
     fwd, bwd0, bwd = main_t["fwd"], main_t["bwd_0.0"], main_t[f"bwd_{rate}"]

@@ -7,8 +7,9 @@ The reference's two checkpoint roles (src/utils/load_save.py:37-62,
 - **eval snapshots**: ``ckpt/model_step_{N}.pt``, parameters only, at
   each validation (:class:`ModelSaver`);
 - **preemption restore**: ``restore/step_{N}.pt`` holds the whole train
-  state (parameters, optimizer moments and count, micro step), the two
-  newest kept, resumed automatically at startup
+  state (parameters, the optimizer's state: its count and moments, and
+  under MultiSteps the open window's accumulated gradients and mini-step;
+  the micro step), the two newest kept, resumed automatically at startup
   (:class:`TrainingRestorer`).
 
 Every file is written to a temporary name and renamed into place, so a
@@ -108,12 +109,30 @@ class FormulationMismatchError(RuntimeError):
 
 
 def _layout(state) -> Dict[str, Any]:
-    """What a restore must match: the accumulation formulation (the port
-    has only the scan form; the JAX package's MultiSteps wraps its
-    optimizer state differently) and each parameter's name and shape."""
-    return {"formulation": "scan",
+    """What a restore must match: the optimizer and its accumulation
+    formulation (``kind``: e.g. ``adamw``, ``adamw/bf16``, ``adamax``,
+    ``sgd``, ``multisteps(adam)``; each keeps other state) and each
+    parameter's name and shape."""
+    return {"optimizer": state.optimizer.kind,
             "params": {n: list(p.shape)
                        for n, p in state.model.named_parameters()}}
+
+
+# The kinds whose state a snapshot of the older layout, {"formulation":
+# "scan", "params": ...}, holds: the scan form with f32 Adam or AdamW
+# moments, saved as {"count", "mu", "nu"} as these kinds save them now.
+_SCAN_FORMULATION_KINDS = ("adam", "adamw")
+
+
+def _saved_layout(layout: Mapping[str, Any], kind: str) -> Dict[str, Any]:
+    """A saved layout in the current form: one of the older form, which
+    does not say whether its moments came from Adam or AdamW, reads as
+    the resuming run's kind when that is one of the two."""
+    if "formulation" not in layout:
+        return dict(layout)
+    return {"optimizer": (kind if kind in _SCAN_FORMULATION_KINDS
+                          else "adam(w) f32, scan accumulation"),
+            "params": layout["params"]}
 
 
 class TrainingRestorer:
@@ -133,13 +152,10 @@ class TrainingRestorer:
         return int(latest) if latest is not None else 0
 
     def _save(self, step: int, state) -> None:
-        opt = state.optimizer
         self._files.save(step, {
             "layout": _layout(state),
             "params": _cpu_state(state.model.state_dict()),
-            "opt_state": {"count": opt.count,
-                          "mu": [m.detach().cpu() for m in opt.mu],
-                          "nu": [n.detach().cpu() for n in opt.nu]},
+            "opt_state": state.optimizer.state_dict(),
             "step": int(state.step)})
 
     def force_save(self, step: int, state) -> bool:
@@ -157,27 +173,26 @@ class TrainingRestorer:
 
     def restore_into(self, state):
         """Load the newest checkpoint into ``state`` in place (model
-        parameters, optimizer moments and count, micro step); ``state``
-        unchanged when there is none."""
+        parameters, optimizer state, micro step); ``state`` unchanged when
+        there is none."""
         latest = self._files.latest_step()
         if latest is None:
             return state
         saved = self._files.load(latest)
-        if saved["layout"] != _layout(state):
+        ours = _layout(state)
+        theirs = _saved_layout(saved["layout"], ours["optimizer"])
+        if theirs != ours:
+            what = ("the optimizer or its accumulation formulation "
+                    f"({theirs['optimizer']} saved, {ours['optimizer']} now)"
+                    if theirs["optimizer"] != ours["optimizer"] else
+                    "the model's parameter names or shapes")
             raise FormulationMismatchError(
                 f"restore checkpoint step {latest} under {self.dir} has "
-                f"another state layout than this run (model or "
-                f"accumulation formulation changed); restart from an eval "
-                f"snapshot (params only) instead")
+                f"another state layout than this run ({what} changed); "
+                f"restart from an eval snapshot (params only) instead")
         LOGGER.info(f"auto-resuming from restore checkpoint step {latest}")
         state.model.load_state_dict(saved["params"], strict=True)
-        opt = state.optimizer
-        with torch.no_grad():
-            for dst, src in zip(opt.mu + opt.nu,
-                                saved["opt_state"]["mu"]
-                                + saved["opt_state"]["nu"]):
-                dst.copy_(src)
-        opt.count = int(saved["opt_state"]["count"])
+        state.optimizer.load_state_dict(saved["opt_state"])
         state.step = int(saved["step"])
         return state
 

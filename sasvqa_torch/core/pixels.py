@@ -1,10 +1,15 @@
-"""uint8 wire format for normalized pixel staging.
+"""Host wire formats for pixel staging: uint8 and bf16.
 
 Counterpart of sasvqa_tpu/core/pixels.py.  Frame stores hold
 CLIP-normalized floats ``x = (u/255 - mean_c) / std_c`` of uint8 frames
 ``u``; :func:`quantize_u8` inverts that affine on the host and
 :func:`dequantize` re-applies it on the device in the same f32 op order
 (u8 -> f32, /255, -mean, /std), so on-grid frames come back bit-equal.
+
+numpy has no bfloat16, so bf16-staged pixels travel as their bit
+patterns in ``uint16`` arrays (:func:`bf16_bits`, rounded to nearest even
+as ``ml_dtypes`` rounds) and become ``torch.bfloat16`` tensors in
+:func:`host_tensor`.  No other batch leaf is ``uint16``.
 """
 
 from __future__ import annotations
@@ -30,6 +35,33 @@ def quantize_u8(frames: np.ndarray) -> np.ndarray:
     np.rint(q, out=q)
     np.clip(q, 0.0, 255.0, out=q)
     return q.astype(np.uint8)
+
+
+def bf16_bits(x: np.ndarray) -> np.ndarray:
+    """f32 values -> the bit patterns (``uint16``) of their bf16
+    roundings: to nearest, ties to even; a NaN becomes the quiet NaN of
+    its sign (0x7FC0 | sign), as ``ml_dtypes.bfloat16`` casts."""
+    x = np.asarray(x, np.float32)
+    bits = x.view(np.uint32)
+    lsb = (bits >> np.uint32(16)) & np.uint32(1)
+    out = ((bits + np.uint32(0x7FFF) + lsb) >> np.uint32(16)).astype(np.uint16)
+    nan = np.isnan(x)
+    if nan.any():
+        sign = (bits[nan] >> np.uint32(16)).astype(np.uint16) & np.uint16(0x8000)
+        out[nan] = sign | np.uint16(0x7FC0)
+    return out
+
+
+def host_tensor(x) -> torch.Tensor:
+    """A host batch leaf as a CPU tensor sharing its memory: ``uint16``
+    arrays (bf16 bit patterns, :func:`bf16_bits`) as ``torch.bfloat16``,
+    every other array in its own dtype; tensors pass through."""
+    if isinstance(x, torch.Tensor):
+        return x
+    x = np.ascontiguousarray(x)
+    if x.dtype == np.uint16:
+        return torch.from_numpy(x.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(x)
 
 
 def dequantize(pixel_values: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:

@@ -4,8 +4,9 @@ classification batches.
 
 Text pads to a fixed ``max_txt_len``; frames are re-sampled on the host
 by sampling/policies.py into a static (B_groups, T, H, W, C) array.
-Pixel staging dtypes: ``"f32"`` and ``"u8"`` (core/pixels.py).  The JAX
-package's ``"bf16"`` host staging needs ``ml_dtypes`` and is not ported.
+Pixel staging dtypes: ``"bf16"`` (the default of a bf16 run, as in the
+JAX package; bf16 bit patterns in a ``uint16`` array, core/pixels.py),
+``"f32"`` and ``"u8"`` (core/pixels.py).
 """
 
 from __future__ import annotations
@@ -16,19 +17,17 @@ from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 import numpy as np
 
 from sasvqa_torch.core.logging import LOGGER
-from sasvqa_torch.core.pixels import quantize_u8
+from sasvqa_torch.core.pixels import bf16_bits, quantize_u8
 from sasvqa_torch.data.annotations import IGNORE_INDEX
 from sasvqa_torch.data.frame_store import LazyVideoFrames
 from sasvqa_torch.sampling import policies
 
-PIXEL_DTYPES = {"f32": np.float32, "u8": np.uint8}
+# host staging dtype of each pixel wire format: bf16 travels as its bit
+# patterns (numpy has no bfloat16)
+PIXEL_DTYPES = {"bf16": np.uint16, "f32": np.float32, "u8": np.uint8}
 
 
 def _pixel_dtype(name: str):
-    if name == "bf16":
-        raise NotImplementedError(
-            "bf16 host pixel staging needs ml_dtypes and is not ported; "
-            "use 'f32' or 'u8'")
     if name not in PIXEL_DTYPES:
         raise ValueError(f"unknown pixel_dtype {name!r}")
     return PIXEL_DTYPES[name]
@@ -135,6 +134,9 @@ def _resample_frames(items: List[Dict[str, Any]], policy: str, nframe: int,
         # cast-assign would truncate floats)
         for i, d in enumerate(items):
             out[i] = quantize_u8(d["vid"][inds[i]])
+    elif out_dtype == np.uint16:
+        for i, d in enumerate(items):
+            out[i] = bf16_bits(d["vid"][inds[i]])
     else:
         for i, d in enumerate(items):
             out[i] = d["vid"][inds[i]]
@@ -297,11 +299,15 @@ class GITCollator:
 
 
 def pixel_dtype_for(cfg: Mapping[str, Any]) -> str:
-    """``"u8"`` under ``stage_pixels_u8``, else ``"f32"``.  Where the JAX
-    package stages bf16 on the host, the port stages f32: the model's
-    first product rounds the pixels to bf16 on the device, to the same
-    values."""
-    return "u8" if cfg.get("stage_pixels_u8", 0) else "f32"
+    """The JAX package's rule: ``"u8"`` under ``stage_pixels_u8``; else
+    ``"bf16"`` when the run computes in bf16 (``bf16``, default on) and
+    ``stage_pixels_bf16`` (default on), half the bytes of f32 with the
+    values the model's first product rounds to anyway; else ``"f32"``."""
+    if cfg.get("stage_pixels_u8", 0):
+        return "u8"
+    if cfg.get("bf16", True) and cfg.get("stage_pixels_bf16", 1):
+        return "bf16"
+    return "f32"
 
 
 def make_collator(family: str, tokenizer, cfg: Mapping[str, Any]):

@@ -64,12 +64,16 @@ class FrameStoreWriter:
 
 class FrameStoreReader:
     """Lazy per-row reads.  The handle opens at first use and reopens in
-    a forked process (HDF5 handles shared across fork corrupt reads)."""
+    a forked process (HDF5 handles shared across fork corrupt reads); a
+    pickled reader (a collation worker's copy) carries the path only."""
 
     def __init__(self, h5_path: str):
         self._path = h5_path
         self._f: Optional[Any] = None
         self._pid: Optional[int] = None
+
+    def __getstate__(self):
+        return {"_path": self._path, "_f": None, "_pid": None}
 
     def _ds(self):
         if self._f is None or self._pid != os.getpid():

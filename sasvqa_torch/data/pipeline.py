@@ -20,6 +20,7 @@ import torch
 
 from sasvqa_torch.core.device import DeviceLike, resolve_device
 from sasvqa_torch.core.logging import LOGGER
+from sasvqa_torch.core.pixels import host_tensor
 
 # batch keys that stay host-side lists (per-example ids, group sizes)
 HOST_KEYS = ("question_ids", "n_examples_list")
@@ -75,27 +76,85 @@ def collate_indices(dataset, collator, idx, rng) -> Dict[str, Any]:
     return collator(items, rng=rng)
 
 
-class CollatorPool:
-    """The JAX package's process pool for collation (``n_workers`` > 0)
-    is not ported yet (ROADMAP.md): collation runs in the prefetcher's
-    thread."""
+# -- collation in worker processes (``n_workers`` > 0; the reference's
+# DataLoader workers): each task carries its batch indices and the seed of
+# its collation generator, so a batch is the same whichever worker
+# collates it, and results are taken in submission order.
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "n_workers > 0 (CollatorPool) is not ported yet; see ROADMAP.md")
+_WORKER_STATE: Dict[str, Any] = {}
+
+
+def _pool_init(dataset, collator) -> None:
+    _WORKER_STATE["dataset"] = dataset
+    _WORKER_STATE["collator"] = collator
+
+
+def _pool_collate(task) -> Dict[str, Any]:
+    idx, seed = task
+    return collate_indices(_WORKER_STATE["dataset"],
+                           _WORKER_STATE["collator"], idx,
+                           np.random.default_rng(seed))
+
+
+class CollatorPool:
+    """``get_group`` + collation in ``n_workers`` worker processes.
+
+    Workers are spawn-started (a fork of the multithreaded training
+    process can inherit a held lock); each unpickles ``(dataset,
+    collator)`` once, so both must pickle (FrameStoreReader reopens its
+    file in the worker).  :meth:`imap` keeps at most ``2 * n_workers``
+    tasks in flight and yields their batches in submission order.  A
+    task's exception is raised in the consumer; a worker that dies fails
+    the pool (``BrokenProcessPool``) and every later call, with no
+    fallback to collation in the caller's thread.  :meth:`close` cancels
+    the pending tasks, terminates the workers and joins them."""
+
+    def __init__(self, dataset, collator, n_workers: int):
+        import multiprocessing as mp
+        from concurrent.futures import ProcessPoolExecutor
+        if n_workers < 1:
+            raise ValueError(f"n_workers must be >= 1, got {n_workers}")
+        self.n_workers = int(n_workers)
+        self._executor = ProcessPoolExecutor(
+            self.n_workers, mp_context=mp.get_context("spawn"),
+            initializer=_pool_init, initargs=(dataset, collator))
+
+    def imap(self, tasks) -> Iterator[Dict[str, Any]]:
+        """tasks: iterable of (indices, seed) -> their batches in order."""
+        from collections import deque
+        pending: "deque" = deque()
+        for task in tasks:
+            pending.append(self._executor.submit(_pool_collate, task))
+            if len(pending) >= 2 * self.n_workers:
+                yield pending.popleft().result()
+        while pending:
+            yield pending.popleft().result()
+
+    def close(self) -> None:
+        # the executor terminates no running worker itself (Python 3.12)
+        procs = list((self._executor._processes or {}).values())
+        self._executor.shutdown(wait=False, cancel_futures=True)
+        for proc in procs:
+            proc.terminate()
+        for proc in procs:
+            proc.join()
+        self._executor.shutdown(wait=True)
 
 
 def epoch_batches(dataset, collator, batch_size: int, shuffle: bool,
                   rng: Optional[np.random.Generator] = None,
                   drop_last: bool = False, rank: int = 0,
-                  world_size: int = 1) -> Iterator[Dict[str, Any]]:
-    """One epoch of collated host batches of this rank's shard.
+                  world_size: int = 1,
+                  pool: Optional[CollatorPool] = None
+                  ) -> Iterator[Dict[str, Any]]:
+    """One epoch of collated host batches of this rank's shard, collated
+    in ``pool``'s workers when one is given.
 
     Exactly two draws are taken from ``rng`` per epoch (a permutation
     seed and a collation seed), whatever the shard size or sampling
     policy, and each batch collates with its own generator seeded by
     (collation seed, rank, batch index): the JAX package's stream, draw
-    for draw."""
+    for draw, with or without a pool."""
     if shuffle:
         if rng is None:
             raise ValueError("shuffle=True needs an rng")
@@ -114,21 +173,26 @@ def epoch_batches(dataset, collator, batch_size: int, shuffle: bool,
             "shrink the batch or the rank count")
     batches = batch_indices(len(order), batch_size, False, None,
                             drop_last=drop_last, order=order)
-    for b, idx in enumerate(batches):
+    seeds = [(collate_seed, rank, b) for b in range(len(batches))]
+    if pool is not None:
+        yield from pool.imap(zip(batches, seeds))
+        return
+    for idx, seed in zip(batches, seeds):
         yield collate_indices(dataset, collator, idx,
-                              np.random.default_rng((collate_seed, rank, b)))
+                              np.random.default_rng(seed))
 
 
 def infinite_batches(dataset, collator, batch_size: int,
                      rng: np.random.Generator, drop_last: bool = True,
-                     rank: int = 0, world_size: int = 1
+                     rank: int = 0, world_size: int = 1,
+                     pool: Optional[CollatorPool] = None
                      ) -> Iterator[Dict[str, Any]]:
     """Reshuffles each epoch and never ends (the reference's
     InfiniteIterator, dataloader.py:147-160)."""
     while True:
         yield from epoch_batches(dataset, collator, batch_size,
                                  shuffle=True, rng=rng, drop_last=drop_last,
-                                 rank=rank, world_size=world_size)
+                                 rank=rank, world_size=world_size, pool=pool)
 
 
 def stack_microbatches(it: Iterator[Dict[str, Any]], k: int,
@@ -181,7 +245,7 @@ class DevicePrefetcher:
     after the copies is what the consumer's stream waits on, so the step
     never reads a half-copied batch and the host never blocks on the
     copy.  On the CPU the leaves become tensors in place.  Leaves keep
-    their staging dtype (f32 or u8 pixels, int32 text).  Yields
+    their staging dtype (bf16, f32 or u8 pixels, int32 text).  Yields
     ``(arrays, host)``: the leaves as tensors (None stays None) and the
     ``HOST_KEYS`` lists."""
 
@@ -206,15 +270,13 @@ class DevicePrefetcher:
         if self._cuda:
             with torch.cuda.stream(self._stream):
                 for k, v in batch.items():
-                    arrays[k] = None if v is None else torch.from_numpy(
-                        np.ascontiguousarray(v)).pin_memory().to(
-                            self._dev, non_blocking=True)
+                    arrays[k] = None if v is None else host_tensor(
+                        v).pin_memory().to(self._dev, non_blocking=True)
                 event = torch.cuda.Event()
                 event.record(self._stream)
         else:
             for k, v in batch.items():
-                arrays[k] = None if v is None else torch.from_numpy(
-                    np.ascontiguousarray(v))
+                arrays[k] = None if v is None else host_tensor(v)
         return arrays, host, event
 
     def _put(self, item) -> bool:

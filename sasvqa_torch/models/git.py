@@ -28,12 +28,11 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Dict, List, Optional, Tuple
 
-import numpy as np
 import torch
 from torch import nn
 
 from sasvqa_torch.core.device import DeviceLike, resolve_device
-from sasvqa_torch.core.pixels import maybe_dequantize
+from sasvqa_torch.core.pixels import host_tensor, maybe_dequantize
 from sasvqa_torch.models.clip import CLIPVisionConfig, CLIPVisionEncoder
 from sasvqa_torch.models.layers import (BertFFN, Dense, Dropout, Embed,
                                         LayerNorm, init_params, merge_heads,
@@ -417,9 +416,7 @@ class GITForCausalLM(nn.Module):
 
 def _on_device(x, device: torch.device, dtype: Optional[torch.dtype] = None
                ) -> torch.Tensor:
-    t = torch.from_numpy(np.ascontiguousarray(x)) \
-        if isinstance(x, np.ndarray) else x
-    return t.to(device=device, dtype=dtype)
+    return host_tensor(x).to(device=device, dtype=dtype)
 
 
 @torch.inference_mode()

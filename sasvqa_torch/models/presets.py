@@ -11,7 +11,8 @@ the GIT dropouts (``model.hidden_dropout_prob``,
 (``remat``/``remat_policy`` in ``cfg["model"]`` or ``cfg``) and, for the
 classifier families, the head settings (``num_labels``, ``loss_type``,
 ``classifier``, ``cls_hidden_scale``, ``model.hidden_dropout_prob``,
-``model.attn_type``).  Weights are drawn
+``model.attn_type``); ``task`` ``action`` or ``transition`` builds the
+multiple-choice scorer of a classifier family.  Weights are drawn
 from a seeded generator; :func:`load_pretrained_params` then overlays a
 local HF checkpoint (no hub downloads).
 """
@@ -35,6 +36,9 @@ from sasvqa_torch.models.clip import (CLIP_VIT_B16, CLIP_VIT_B32,
 from sasvqa_torch.models.git import GIT_BASE, GITConfig, GITForCausalLM
 from sasvqa_torch.models.video_qa import (BLIPVideoQA, ClassifierHeadConfig,
                                           CLIPVideoQA)
+
+# the TGIF-QA multiple-choice tasks (5 options a question)
+MC_TASKS = ("action", "transition")
 
 TINY_VISION = CLIPVisionConfig(hidden_size=32, intermediate_size=64,
                                num_layers=2, num_heads=4, image_size=32,
@@ -118,10 +122,18 @@ def build_model(cfg: Mapping[str, Any], dtype: torch.dtype = torch.float32,
     """Construct the task model from ``cfg["model"]``; returns
     (family, model in eval mode on ``device``).  ``dtype`` is the
     activation dtype (parameters stay f32); weights come from
-    ``generator`` (default: seeded with 0)."""
+    ``generator`` (default: seeded with 0).  A multiple-choice ``task``
+    (TGIF-QA ``action``/``transition``) builds the CLIP or BLIP model
+    with ``mc_head`` instead of ``answer_head``; GIT has no scoring head
+    and raises ``ValueError`` for it."""
     dev = resolve_device(device)
     name = cfg["model"]["pretrained_model"].lower()
     family = model_family(name)
+    mc = cfg.get("task") in MC_TASKS
+    if mc and family == "git":
+        raise ValueError(
+            f"{cfg.get('task')} multiple-choice requires a clip/blip model; "
+            f"the GIT generative path has no MC scoring head")
     vocab_override = cfg["model"].get("vocab_size")
     img_size = cfg.get("img_size")
     if family == "clip":
@@ -132,7 +144,7 @@ def build_model(cfg: Mapping[str, Any], dtype: torch.dtype = torch.float32,
         if img_size and img_size != vc.image_size:
             vc = dataclasses.replace(vc, image_size=img_size)
         model = CLIPVideoQA(tc, vc, _head_config(cfg), dtype=dtype,
-                            generator=generator)
+                            generator=generator, multiple_choice=mc)
         return family, model.to(dev).eval()
     if family == "blip":
         tc, vc = _blip_configs(name)
@@ -141,7 +153,7 @@ def build_model(cfg: Mapping[str, Any], dtype: torch.dtype = torch.float32,
         if img_size and img_size != vc.image_size:
             vc = dataclasses.replace(vc, image_size=img_size)
         model = BLIPVideoQA(tc, vc, _head_config(cfg), dtype=dtype,
-                            generator=generator)
+                            generator=generator, multiple_choice=mc)
         return family, model.to(dev).eval()
     gc = _git_config(name)
     if vocab_override:

@@ -7,12 +7,14 @@ sasvqa_tpu/tasks/run_video_qa.py):
 
 The same config files drive it, with the JAX package's flags, step math
 (reference run_video_qa.py:424-435), validation cadence, answer vocabulary
-and metrics; ``model.pretrained_weights`` names a local HF checkpoint
-that is overlaid on the seeded init.  It runs on the GPU unless the config
-sets ``"platform": "cpu"``.  Not ported yet (each raises
-``NotImplementedError``; ROADMAP.md lists them): multiple choice
-(``task`` action/transition), a ``mesh_shape`` of more than one device,
-multi-process training and ``n_workers`` > 0.
+and metrics, including TGIF-QA multiple choice (``task`` action or
+transition, CLIP and BLIP), collation in worker processes (``n_workers``),
+every optimizer of the JAX package and its MultiSteps accumulation
+(``scan_accum: 0``); ``model.pretrained_weights`` names a local HF
+checkpoint that is overlaid on the seeded init.  It runs on the GPU unless
+the config sets ``"platform": "cpu"``.  Not ported yet (each raises
+``NotImplementedError``; ROADMAP.md lists them): a ``mesh_shape`` of more
+than one device and multi-process training.
 """
 
 from __future__ import annotations
@@ -46,7 +48,8 @@ from sasvqa_torch.data.pipeline import (CollatorPool, DevicePrefetcher,
 from sasvqa_torch.data.tokenization import (CLIPBPETokenizer,
                                             WordPieceTokenizer,
                                             make_test_wordpiece)
-from sasvqa_torch.models.presets import build_model, load_pretrained_params
+from sasvqa_torch.models.presets import (MC_TASKS, build_model,
+                                         load_pretrained_params)
 from sasvqa_torch.train import steps as train_steps
 from sasvqa_torch.train.retrieval import aggregate_clip_scores
 from sasvqa_torch.utils.basic import get_rounded_percentage, save_json
@@ -120,7 +123,7 @@ def validate(dataset, collator, cfg, tokenizer, ans2label,
     for every question of ``dataset``, scored by :func:`evaluate_qa`.
     GIT answers greedily (``eval_step`` returns token ids); a classifier
     family answers the argmax label (``eval_step`` returns (labels,
-    loss)).
+    loss)), or under multiple choice the argmax option.
 
     'random'-policy frame draws are seeded per (group, clip), so a
     checkpoint scores the same at any eval batch size or plan padding.
@@ -254,9 +257,6 @@ def step_math(cfg, n_train_groups: int) -> Tuple[int, int, int]:
 
 
 def _check_ported(cfg) -> None:
-    if cfg.task in ("action", "transition"):
-        raise NotImplementedError(f"multiple-choice ({cfg.task}) training "
-                                  f"{_NOT_PORTED}")
     if int(np.prod(cfg.get("mesh_shape") or [1])) > 1:
         raise NotImplementedError(f"a mesh of more than one device "
                                   f"{_NOT_PORTED}: the port trains on one")
@@ -264,8 +264,6 @@ def _check_ported(cfg) -> None:
             torch.distributed.is_initialized():
         raise NotImplementedError(f"multi-process training (M11) "
                                   f"{_NOT_PORTED}")
-    if int(cfg.get("n_workers", 0) or 0) > 0:
-        CollatorPool()          # raises: not ported
 
 
 def start_training(cfg, *, open_store: Callable[[str], Any] = FrameStoreReader
@@ -282,14 +280,18 @@ def start_training(cfg, *, open_store: Callable[[str], Any] = FrameStoreReader
     _check_ported(cfg)
     init_gen, host_rng = set_random_seed(cfg.seed)
 
-    if cfg.get("ans2label_path"):
+    is_mc = cfg.task in MC_TASKS
+    if is_mc:
+        # multiple-choice answers are option indices: the identity map
+        ans2label = {i: i for i in range(cfg.num_labels)}
+    elif cfg.get("ans2label_path"):
         from sasvqa_torch.utils.basic import load_json
         ans2label = load_json(cfg.ans2label_path)
     else:
         # answer vocab from the train split, k=1000 (run_video_qa.py:205-208)
         ans2label = build_common_answer_dict((cfg.train_datasets[0].txt,),
                                              1000)
-    if len(ans2label) > cfg.num_labels:
+    if not is_mc and len(ans2label) > cfg.num_labels:
         LOGGER.warning(
             f"answer vocabulary ({len(ans2label)} entries) exceeds the "
             f"task's num_labels floor ({cfg.num_labels}); growing it to "
@@ -360,7 +362,15 @@ def _run(cfg, family, model, state, tokenizer, ans2label, collator, host_rng,
     use_scan = accum > 1 and bool(cfg.get("scan_accum", 1))
     gmean = bool(cfg.get("accum_grad_mean", 1))
     logits_step = None
-    if family == "git":
+    n_options = cfg.num_labels if cfg.task in MC_TASKS else 0
+    if n_options:
+        train_step = (train_steps.make_scan_train_step(
+            accum, "mc", grad_mean=gmean, device=dev, n_options=n_options)
+            if use_scan else train_steps.make_mc_train_step(n_options, dev))
+        eval_step = train_steps.make_mc_eval_step(model, n_options,
+                                                  device=dev)
+        eval_collator = collator
+    elif family == "git":
         train_step = (train_steps.make_scan_train_step(accum, "git",
                                                        grad_mean=gmean,
                                                        device=dev)
@@ -469,12 +479,15 @@ def _train_loop(cfg, state, train_step, train_ds, collator, host_rng,
                 acc["total"] += int(vals["acc_total"])
         pending.clear()
 
-    prefetch = None
+    prefetch = pool = None
     if cfg.num_train_steps > 0:
         # inference-only runs skip the pipeline: the prefetch thread starts
         # staging batches on construction
+        n_workers = int(cfg.get("n_workers", 0) or 0)
+        if n_workers > 0:
+            pool = CollatorPool(train_ds, collator, n_workers)
         source = infinite_batches(train_ds, collator, cfg.train_batch_size,
-                                  host_rng)
+                                  host_rng, pool=pool)
         if use_scan:
             source = stack_microbatches(source, accum)
         # a K-stacked batch is K times the device bytes: depth 1 still
@@ -567,6 +580,8 @@ def _train_loop(cfg, state, train_step, train_ds, collator, host_rng,
     finally:
         if prefetch is not None:
             prefetch.close()   # release staged batches before final eval
+        if pool is not None:
+            pool.close()
     flush_metrics()
     if prof["p"] is not None:
         prof_stop()

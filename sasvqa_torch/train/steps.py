@@ -1,20 +1,23 @@
 """Optimizer, train steps and eval steps (counterpart of
-sasvqa_tpu/train/steps.py), for the GIT family and the BLIP classifier.
+sasvqa_tpu/train/steps.py), for the GIT family, the CLIP/BLIP answer
+classifiers and TGIF-QA multiple choice.
 
 - :func:`make_optimizer` builds the JAX package's optax chain by hand:
   clip by global norm -> AdamW (masked decoupled weight decay, LR
-  schedule) or Adam (``optim: "adam"``, no decay) -> masked lr_mul scale,
-  with optax's numerics (clip only when the norm reaches the limit, as
-  ``(g / norm) * max``; the schedule read at the update count before it
-  is incremented; bias correction in f32);
+  schedule; f32 or bf16 moments), Adam (no decay), Adamax or SGD ->
+  masked lr_mul scale, with optax's numerics (clip only when the norm
+  reaches the limit, as ``(g / norm) * max``; the schedule read at the
+  update count before it is incremented; bias correction in f32), and
+  with ``scan_accum: 0`` the optax.MultiSteps wrapper
+  (:class:`MultiSteps`);
 - :func:`make_scan_train_step` accumulates K micro-batches' gradients
   (Welford mean, or the plain sum) and runs one optimizer update per K
-  micros, for ``family="git"`` (LM loss) or ``"classifier"`` (answer
-  classification, with train-accuracy counts);
-  :func:`make_git_train_step` and :func:`make_classifier_train_step` are
-  the one-micro forms;
+  micros, for ``family="git"`` (LM loss), ``"classifier"`` (answer
+  classification, with train-accuracy counts) or ``"mc"`` (multiple
+  choice); :func:`make_git_train_step`, :func:`make_classifier_train_step`
+  and :func:`make_mc_train_step` are the one-micro forms;
 - the eval steps: greedy decode for GIT, argmax labels or raw logits for
-  the classifier.
+  the classifier, argmax options for multiple choice.
 
 The port updates parameters in place (the JAX package returns a new
 state): a step returns the same :class:`TrainState` with ``step``
@@ -26,13 +29,17 @@ advanced, and leaves the gradient it applied in each parameter's
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, Tuple
+from functools import partial
+from typing import (Any, Callable, Dict, List, Mapping, Optional, Sequence,
+                    Tuple, Union)
 
 import numpy as np
 import torch
 from torch import nn
 
 from sasvqa_torch.core.device import DeviceLike, resolve_device
+from sasvqa_torch.core.logging import LOGGER
+from sasvqa_torch.core.pixels import host_tensor
 from sasvqa_torch.models.convert import flax_param_names
 from sasvqa_torch.models.git import greedy_generate
 from sasvqa_torch.train.schedules import Schedule, get_lr_schedule, lr_value
@@ -73,16 +80,23 @@ class AdamW:
     """The optax chain of ``make_optimizer``, applied in place.
 
     ``update(grads)`` clips the gradients by their global norm
-    (``max_norm`` > 0), forms the Adam update from f32 moments with
-    f32 bias correction, adds ``weight_decay * param`` where ``decay``
-    holds (nowhere for optax.adam), scales by ``-schedule(count)`` and by
-    ``lr_mul``, adds the result to the parameters and returns the global
-    norm before clipping.  ``count`` counts updates."""
+    (``max_norm`` > 0), forms the Adam update with f32 bias correction,
+    adds ``weight_decay * param`` where ``decay`` holds (nowhere for
+    optax.adam), scales by ``-schedule(count)`` and by ``lr_mul``, adds
+    the result to the parameters and returns the global norm before
+    clipping.  ``count`` counts updates.  The moments are stored in
+    ``moment_dtype``: f32 (optax.adamw / optax.adam) or bf16 (the JAX
+    package's ``_scale_by_adam_lowp``: the moving averages and the update
+    are computed in f32 from the stored moments, which alone round).
+    ``kind`` names the optimizer and the moments' dtype for the restore
+    layout: ``name``, with ``/bf16`` appended for bf16 moments."""
 
     def __init__(self, params: Sequence[nn.Parameter], schedule: Schedule,
                  b1: float, b2: float, weight_decay: float,
                  decay: Sequence[bool], lr_mul: Sequence[float],
-                 max_norm: float = -1.0, eps: float = 1e-8):
+                 max_norm: float = -1.0, eps: float = 1e-8,
+                 moment_dtype: torch.dtype = torch.float32,
+                 name: str = "adam"):
         self.params = list(params)
         self.schedule = schedule
         self.b1, self.b2, self.eps = b1, b2, eps
@@ -90,11 +104,36 @@ class AdamW:
         self.decay = list(decay)
         self.lr_mul = list(lr_mul)
         self.max_norm = max_norm
+        self.moment_dtype = moment_dtype
+        self.kind = name + ("/bf16" if moment_dtype == torch.bfloat16
+                            else "")
         self.count = 0
-        self.mu = [torch.zeros_like(p, dtype=torch.float32)
+        self._init_moments()
+
+    def _init_moments(self) -> None:
+        self.mu = [torch.zeros_like(p, dtype=self.moment_dtype)
                    for p in self.params]
-        self.nu = [torch.zeros_like(p, dtype=torch.float32)
+        self.nu = [torch.zeros_like(p, dtype=self.moment_dtype)
                    for p in self.params]
+
+    def _moments(self) -> Dict[str, List[torch.Tensor]]:
+        return {"mu": self.mu, "nu": self.nu}
+
+    def _corrections(self, t: np.float32) -> None:
+        self._bc1 = _f32(np.float32(1.0) - np.float32(self.b1) ** t)
+        self._bc2 = _f32(np.float32(1.0) - np.float32(self.b2) ** t)
+
+    def _direction(self, i: int, g: torch.Tensor) -> torch.Tensor:
+        mu, nu = self.mu[i], self.nu[i]
+        if self.moment_dtype == torch.float32:
+            mu.mul_(self.b1).add_(g * (1.0 - self.b1))
+            nu.mul_(self.b2).add_(g * g * (1.0 - self.b2))
+            return (mu / self._bc1) / (torch.sqrt(nu / self._bc2) + self.eps)
+        m32 = self.b1 * mu.float() + (1.0 - self.b1) * g
+        v32 = self.b2 * nu.float() + (1.0 - self.b2) * g * g
+        mu.copy_(m32)
+        nu.copy_(v32)
+        return (m32 / self._bc1) / (torch.sqrt(v32 / self._bc2) + self.eps)
 
     @torch.no_grad()
     def update(self, grads: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -105,15 +144,10 @@ class AdamW:
                      for g in grads]
         neg_lr = _f32(-self.schedule(self.count))  # pre-increment count
         self.count += 1
-        t = np.float32(self.count)
-        bc1 = _f32(np.float32(1.0) - np.float32(self.b1) ** t)
-        bc2 = _f32(np.float32(1.0) - np.float32(self.b2) ** t)
-        for p, g, mu, nu, decay, mul in zip(self.params, grads, self.mu,
-                                            self.nu, self.decay, self.lr_mul):
-            g = g.float()
-            mu.mul_(self.b1).add_(g * (1.0 - self.b1))
-            nu.mul_(self.b2).add_(g * g * (1.0 - self.b2))
-            upd = (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps)
+        self._corrections(np.float32(self.count))
+        for i, (p, g, decay, mul) in enumerate(zip(
+                self.params, grads, self.decay, self.lr_mul)):
+            upd = self._direction(i, g.float())
             if decay:
                 upd = upd + self.weight_decay * p
             upd = upd * neg_lr
@@ -121,6 +155,122 @@ class AdamW:
                 upd = upd * mul
             p.add_(upd)
         return norm
+
+    def state_dict(self) -> Dict[str, Any]:
+        """The optimizer state as tensors (on the CPU) and ints."""
+        return {"count": self.count,
+                **{k: [t.detach().cpu() for t in v]
+                   for k, v in self._moments().items()}}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: Mapping[str, Any]) -> None:
+        for key, dst in self._moments().items():
+            for d, src in zip(dst, state[key]):
+                d.copy_(src)
+        self.count = int(state["count"])
+
+
+class Adamax(AdamW):
+    """optax.adamax in the same chain: ``mu`` the moving average of the
+    gradients, ``nu`` the decayed infinity norm ``max(|g| + eps, b2 *
+    nu)``, the update ``(mu / (1 - b1^t)) / nu``; no weight decay."""
+
+    def __init__(self, params, schedule, b1, b2, decay, lr_mul,
+                 max_norm=-1.0):
+        super().__init__(params, schedule, b1, b2, 0.0, decay, lr_mul,
+                         max_norm, name="adamax")
+
+    def _corrections(self, t: np.float32) -> None:
+        self._bc1 = _f32(np.float32(1.0) - np.float32(self.b1) ** t)
+
+    def _direction(self, i: int, g: torch.Tensor) -> torch.Tensor:
+        mu, nu = self.mu[i], self.nu[i]
+        mu.copy_((1.0 - self.b1) * g + self.b1 * mu)
+        nu.copy_(torch.maximum(g.abs() + self.eps, self.b2 * nu))
+        return (mu / self._bc1) / nu
+
+
+class SGD(AdamW):
+    """optax.sgd without momentum in the same chain: the update is the
+    (clipped) gradient itself; no optimizer state but the count."""
+
+    def __init__(self, params, schedule, decay, lr_mul, max_norm=-1.0):
+        super().__init__(params, schedule, 0.0, 0.0, 0.0, decay, lr_mul,
+                         max_norm, name="sgd")
+
+    def _init_moments(self) -> None:
+        pass
+
+    def _moments(self) -> Dict[str, List[torch.Tensor]]:
+        return {}
+
+    def _corrections(self, t: np.float32) -> None:
+        pass
+
+    def _direction(self, i: int, g: torch.Tensor) -> torch.Tensor:
+        return g
+
+
+class MultiSteps:
+    """optax.MultiSteps(inner, every_k_schedule=K, use_grad_mean) applied
+    in place: each ``update`` (one a micro-batch) adds the micro's
+    gradients into the accumulator, as the Welford mean ``acc + (g -
+    acc)/(n+1)`` or the plain sum, and every K-th one runs the inner
+    update on the accumulated gradients and zeroes them.  ``mini_step``
+    counts the micros of the open window, ``gradient_step`` the updates;
+    the inner count (and so the learning rate) advances once an update.
+    Returns the global norm of the micro's own gradients (the JAX step's
+    ``grad_norm``)."""
+
+    def __init__(self, inner: AdamW, every_k: int, use_grad_mean: bool):
+        self.inner = inner
+        self.params = inner.params
+        self.every_k = int(every_k)
+        self.use_grad_mean = bool(use_grad_mean)
+        self.kind = f"multisteps({inner.kind})"
+        self.mini_step = 0
+        self.gradient_step = 0
+        self.acc = [torch.zeros_like(p) for p in self.params]
+
+    @property
+    def count(self) -> int:
+        return self.inner.count
+
+    @torch.no_grad()
+    def update(self, grads: Sequence[torch.Tensor]) -> torch.Tensor:
+        n = self.mini_step
+        for a, g in zip(self.acc, grads):
+            if self.use_grad_mean:
+                a.add_((g - a) / (n + 1))
+            else:
+                a.add_(g)
+        if n == self.every_k - 1:
+            self.inner.update(self.acc)
+            for a in self.acc:
+                a.zero_()
+            self.mini_step = 0
+            self.gradient_step += 1
+        else:
+            self.mini_step = n + 1
+        return global_norm(grads)
+
+    def state_dict(self) -> Dict[str, Any]:
+        return {"mini_step": self.mini_step,
+                "gradient_step": self.gradient_step,
+                "acc": [a.detach().cpu() for a in self.acc],
+                "inner": self.inner.state_dict()}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: Mapping[str, Any]) -> None:
+        for dst, src in zip(self.acc, state["acc"]):
+            dst.copy_(src)
+        self.mini_step = int(state["mini_step"])
+        self.gradient_step = int(state["gradient_step"])
+        self.inner.load_state_dict(state["inner"])
+
+
+Optimizer = Union[AdamW, MultiSteps]
+OPTIMIZERS = ("adamw", "adam", "adamax", "sgd")
 
 
 def _milestones(cfg: Mapping[str, Any], total_steps: int) -> List[int]:
@@ -131,41 +281,53 @@ def _milestones(cfg: Mapping[str, Any], total_steps: int) -> List[int]:
 
 
 def make_optimizer(cfg: Mapping[str, Any], total_steps: int,
-                   model: nn.Module) -> AdamW:
-    """AdamW (``optim: "adamw"``, the default) or Adam (``"adam"``: no
-    weight decay, as optax.adam) over ``model``'s parameters from a task
-    config: betas, ``weight_decay`` masked off biases and LayerNorm
-    scales, the LR schedule (``decay``, ``learning_rate``,
+                   model: nn.Module) -> Optimizer:
+    """The JAX package's optimizer over ``model``'s parameters from a task
+    config: ``optim`` adamw (the default, and the fallback of an unknown
+    name, as in the JAX package), adam, adamax or sgd (no momentum);
+    betas (the Adam family), ``weight_decay`` masked off biases and
+    LayerNorm scales (adamw only), ``adamw_moment_dtype: "bf16"`` (adamw
+    only), the LR schedule (``decay``, ``learning_rate``,
     ``warmup_ratio``, ``step_decay_epochs``, ``gamma``), ``grad_norm``
     clipping and the ``transformer_lr_mul``/``transformer_lr_mul_prefix``
-    group."""
+    group.  ``gradient_accumulation_steps`` K > 1 with ``scan_accum: 0``
+    wraps it in :class:`MultiSteps` (``accum_grad_mean``), to be called
+    once a micro-batch."""
     name = str(cfg.get("optim", "adamw")).lower()
-    if name not in ("adamw", "adam"):
-        raise NotImplementedError(f"optimizer {name!r} is not ported "
-                                  f"(adamw and adam only)")
-    if str(cfg.get("adamw_moment_dtype", "f32")) != "f32":
-        raise NotImplementedError("low-precision Adam moments are not "
-                                  "ported (f32 only)")
-    if cfg.get("gradient_accumulation_steps", 1) > 1 \
-            and not cfg.get("scan_accum", 1):
-        raise NotImplementedError("MultiSteps accumulation is not ported: "
-                                  "use make_scan_train_step")
+    if name not in OPTIMIZERS:
+        LOGGER.warning(f"unknown optimizer {name!r}: using adamw")
+        name = "adamw"
     sched = get_lr_schedule(
         cfg.get("decay", "constant"), cfg["learning_rate"],
         total_steps=total_steps, warmup_ratio=cfg.get("warmup_ratio", 0.1),
         milestones=_milestones(cfg, total_steps), gamma=cfg.get("gamma", 0.5))
     betas = cfg.get("betas", [0.9, 0.98])
     named = list(model.named_parameters())
+    params = [p for _, p in named]
     decay = decay_mask(model) if name == "adamw" else {}
+    decay = [decay.get(n, False) for n, _ in named]
     lr_mul = cfg.get("transformer_lr_mul", 1.0)
     prefix = cfg.get("transformer_lr_mul_prefix", "")
     mul = lr_mul_mask(model, prefix) if prefix and lr_mul != 1.0 else {}
-    return AdamW([p for _, p in named], sched, float(betas[0]),
-                 float(betas[1]),
-                 cfg.get("weight_decay", 1e-3) if name == "adamw" else 0.0,
-                 [decay.get(n, False) for n, _ in named],
-                 [lr_mul if mul.get(n) else 1.0 for n, _ in named],
-                 max_norm=cfg.get("grad_norm", -1) or -1.0)
+    mul = [lr_mul if mul.get(n) else 1.0 for n, _ in named]
+    max_norm = cfg.get("grad_norm", -1) or -1.0
+    if name == "sgd":
+        opt: AdamW = SGD(params, sched, decay, mul, max_norm=max_norm)
+    elif name == "adamax":
+        opt = Adamax(params, sched, float(betas[0]), float(betas[1]),
+                     decay, mul, max_norm=max_norm)
+    else:
+        lowp = name == "adamw" and \
+            str(cfg.get("adamw_moment_dtype", "f32")) == "bf16"
+        opt = AdamW(params, sched, float(betas[0]), float(betas[1]),
+                    cfg.get("weight_decay", 1e-3) if name == "adamw"
+                    else 0.0, decay, mul, max_norm=max_norm,
+                    moment_dtype=torch.bfloat16 if lowp else torch.float32,
+                    name=name)
+    accum = int(cfg.get("gradient_accumulation_steps", 1))
+    if accum > 1 and not cfg.get("scan_accum", 1):
+        return MultiSteps(opt, accum, bool(cfg.get("accum_grad_mean", 1)))
+    return opt
 
 
 def lr_at(cfg: Mapping[str, Any], total_steps: int, global_step: int) -> float:
@@ -184,7 +346,7 @@ class TrainState:
     """``step`` counts micro steps; the model holds the parameters."""
     step: int
     model: nn.Module
-    optimizer: AdamW
+    optimizer: Optimizer
 
 
 def create_train_state(model: nn.Module, cfg: Mapping[str, Any],
@@ -210,47 +372,75 @@ def fold_in(seed: int, n: int) -> int:
 
 
 def _tensor(x, device: torch.device, dtype=None) -> torch.Tensor:
-    t = torch.from_numpy(np.ascontiguousarray(x)) \
-        if isinstance(x, np.ndarray) else torch.as_tensor(x)
-    return t.to(device=device, dtype=dtype)
+    return host_tensor(x).to(device=device, dtype=dtype)
 
 
-def _forward(model: nn.Module, batch: Mapping[str, Any],
-             generator: torch.Generator, dev: torch.device
-             ) -> Dict[str, torch.Tensor]:
-    """The training forward (dropouts on) of one micro-batch."""
-    return model(_tensor(batch["text_input_ids"], dev, torch.long),
-                 _tensor(batch["text_attention_mask"], dev),
-                 _tensor(batch["visual_inputs"], dev),
-                 labels=_tensor(batch["labels"], dev, torch.long),
-                 deterministic=False, generator=generator)
+def _inputs(batch: Mapping[str, Any], dev: torch.device):
+    return (_tensor(batch["text_input_ids"], dev, torch.long),
+            _tensor(batch["text_attention_mask"], dev),
+            _tensor(batch["visual_inputs"], dev))
 
 
 def _git_loss(model: nn.Module, batch: Mapping[str, Any],
               generator: torch.Generator, dev: torch.device
               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    return _forward(model, batch, generator, dev)["loss"], {}
+    """The training forward (dropouts on) of one micro-batch."""
+    out = model(*_inputs(batch, dev),
+                labels=_tensor(batch["labels"], dev, torch.long),
+                deterministic=False, generator=generator)
+    return out["loss"], {}
 
 
 def _classifier_loss(model: nn.Module, batch: Mapping[str, Any],
                      generator: torch.Generator, dev: torch.device
                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Loss and the train-accuracy counts over labels other than -100."""
-    out = _forward(model, batch, generator, dev)
     labels = _tensor(batch["labels"], dev, torch.long)
+    out = model(*_inputs(batch, dev), labels=labels, deterministic=False,
+                generator=generator)
     valid = labels != -100
     correct = (out["logits"].argmax(dim=-1) == labels) & valid
     return out["loss"], {"acc_correct": correct.sum(),
                          "acc_total": valid.sum()}
 
 
-_LOSSES = {"git": _git_loss, "classifier": _classifier_loss}
+def _mc_loss(model: nn.Module, batch: Mapping[str, Any],
+             generator: torch.Generator, dev: torch.device, n_options: int
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Multiple-choice loss and accuracy counts: every question counts
+    (option indices have no -100)."""
+    labels = _tensor(batch["labels"], dev, torch.long)
+    out = model.multiple_choice(*_inputs(batch, dev), n_options,
+                                labels=labels, deterministic=False,
+                                generator=generator)
+    correct = out["logits"].argmax(dim=-1) == labels
+    return out["loss"], {"acc_correct": correct.sum(),
+                         "acc_total": torch.tensor(labels.shape[0],
+                                                   device=dev)}
+
+
+_LOSSES = {"git": _git_loss, "classifier": _classifier_loss, "mc": _mc_loss}
+
+LossFn = Callable[[nn.Module, Mapping[str, Any], torch.Generator,
+                   torch.device],
+                  Tuple[torch.Tensor, Dict[str, torch.Tensor]]]
+
+
+def _loss_fn(family: str, n_options: int) -> LossFn:
+    if family not in _LOSSES:
+        raise ValueError(f"unknown family {family!r} (git, classifier or "
+                         f"mc)")
+    if family == "mc":
+        if n_options < 1:
+            raise ValueError("the mc family needs n_options >= 1")
+        return partial(_mc_loss, n_options=n_options)
+    return _LOSSES[family]
 
 
 def _accumulate_and_update(state: TrainState,
                            micros: Sequence[Mapping[str, Any]], seed: int,
                            grad_mean: bool, dev: torch.device,
-                           family: str = "git"
+                           loss_fn: LossFn
                            ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
     params = state.optimizer.params
     acc: List[torch.Tensor] = []
@@ -260,7 +450,7 @@ def _accumulate_and_update(state: TrainState,
             fold_in(seed, state.step + i))
         for p in params:
             p.grad = None
-        loss, metrics = _LOSSES[family](state.model, mb, gen, dev)
+        loss, metrics = loss_fn(state.model, mb, gen, dev)
         loss.backward()
         losses.append(loss.detach())
         counts.append(metrics)
@@ -290,13 +480,14 @@ TrainStep = Callable[[TrainState, Dict[str, Any], int],
 
 def make_git_train_step(device: DeviceLike = "cuda") -> TrainStep:
     """Train step for GIT (loss from LM labels): ``step(state, batch,
-    seed) -> (state, {"loss", "grad_norm"})``, one optimizer update per
-    batch; dropout draws from a generator seeded from (seed,
-    state.step)."""
+    seed) -> (state, {"loss", "grad_norm"})``, one optimizer call per
+    batch (an update, or a micro of a :class:`MultiSteps` window);
+    dropout draws from a generator seeded from (seed, state.step)."""
     dev = resolve_device(device)
 
     def step(state: TrainState, batch: Dict[str, Any], seed: int):
-        return _accumulate_and_update(state, [batch], seed, True, dev)
+        return _accumulate_and_update(state, [batch], seed, True, dev,
+                                      _git_loss)
 
     return step
 
@@ -304,25 +495,45 @@ def make_git_train_step(device: DeviceLike = "cuda") -> TrainStep:
 def make_classifier_train_step(device: DeviceLike = "cuda") -> TrainStep:
     """Train step for the classifier family (CLIP/BLIP answer
     classification): ``step(state, batch, seed) -> (state, {"loss",
-    "grad_norm", "acc_correct", "acc_total"})``, one optimizer update per
+    "grad_norm", "acc_correct", "acc_total"})``, one optimizer call per
     batch; dropout draws from a generator seeded from (seed,
     state.step)."""
     dev = resolve_device(device)
 
     def step(state: TrainState, batch: Dict[str, Any], seed: int):
         return _accumulate_and_update(state, [batch], seed, True, dev,
-                                      "classifier")
+                                      _classifier_loss)
+
+    return step
+
+
+def make_mc_train_step(n_options: int, device: DeviceLike = "cuda"
+                       ) -> TrainStep:
+    """Train step for TGIF-QA multiple choice (``model.multiple_choice``,
+    logits (B, n_options), labels (B,) option indices): ``step(state,
+    batch, seed) -> (state, {"loss", "acc_correct", "acc_total"})``, one
+    optimizer call per batch (the JAX step reports no grad_norm)."""
+    dev = resolve_device(device)
+    loss_fn = _loss_fn("mc", n_options)
+
+    def step(state: TrainState, batch: Dict[str, Any], seed: int):
+        state, metrics = _accumulate_and_update(state, [batch], seed, True,
+                                                dev, loss_fn)
+        del metrics["grad_norm"]
+        return state, metrics
 
     return step
 
 
 def make_scan_train_step(k_micro: int, family: str = "git",
                          grad_mean: bool = True,
-                         device: DeviceLike = "cuda") -> TrainStep:
+                         device: DeviceLike = "cuda",
+                         n_options: int = 0) -> TrainStep:
     """One call = one optimizer update over ``k_micro`` stacked
     micro-batches (every array leaf of the batch is (K, B, ...), as
     ``data.pipeline.stack_microbatches`` makes it).  ``family``: ``"git"``
-    (LM loss) or ``"classifier"`` (answer classification).
+    (LM loss), ``"classifier"`` (answer classification) or ``"mc"``
+    (multiple choice over ``n_options`` options).
 
     Micro i draws its dropout from a generator seeded from (seed,
     state.step + i); ``state.step`` advances by K.  Gradients accumulate
@@ -330,12 +541,11 @@ def make_scan_train_step(k_micro: int, family: str = "git",
     with ``grad_mean=False`` (the reference's per-micro backward without
     /K).  Metrics: ``loss`` is the mean over the K micros, ``grad_norm``
     the norm of the accumulated gradient before clipping; the classifier
-    adds ``acc_correct``/``acc_total`` summed over the K micros."""
+    and mc families add ``acc_correct``/``acc_total`` summed over the K
+    micros."""
     if k_micro < 1:
         raise ValueError(f"k_micro must be >= 1, got {k_micro}")
-    if family not in _LOSSES:
-        raise NotImplementedError(f"the {family} family is not ported yet "
-                                  f"(git and classifier only)")
+    loss_fn = _loss_fn(family, n_options)
     dev = resolve_device(device)
 
     def step(state: TrainState, batch: Dict[str, Any], seed: int):
@@ -343,7 +553,7 @@ def make_scan_train_step(k_micro: int, family: str = "git",
                    ("text_input_ids", "text_attention_mask",
                     "visual_inputs", "labels")} for i in range(k_micro)]
         return _accumulate_and_update(state, micros, seed, grad_mean, dev,
-                                      family)
+                                      loss_fn)
 
     return step
 
@@ -351,9 +561,7 @@ def make_scan_train_step(k_micro: int, family: str = "git",
 def _eval_forward(model: nn.Module, batch: Mapping[str, Any],
                   dev: torch.device) -> Dict[str, torch.Tensor]:
     labels = batch.get("labels")
-    return model(_tensor(batch["text_input_ids"], dev, torch.long),
-                 _tensor(batch["text_attention_mask"], dev),
-                 _tensor(batch["visual_inputs"], dev),
+    return model(*_inputs(batch, dev),
                  labels=None if labels is None
                  else _tensor(labels, dev, torch.long))
 
@@ -372,6 +580,23 @@ def make_classifier_eval_step(model: nn.Module, device: DeviceLike = "cuda"
         out = _eval_forward(model, batch, dev)
         return (out["logits"].argmax(dim=-1),
                 out.get("loss", torch.zeros((), device=dev)))
+
+    return step
+
+
+def make_mc_eval_step(model: nn.Module, n_options: int,
+                      device: DeviceLike = "cuda"
+                      ) -> Callable[[Dict[str, Any]],
+                                    Tuple[torch.Tensor, torch.Tensor]]:
+    """Multiple-choice eval: batch (B*n_options text rows) -> (the argmax
+    option index of each question (B,), 0), computed under
+    ``torch.inference_mode()`` on ``device``."""
+    dev = resolve_device(device)
+
+    @torch.inference_mode()
+    def step(batch: Dict[str, Any]):
+        out = model.multiple_choice(*_inputs(batch, dev), n_options)
+        return out["logits"].argmax(dim=-1), torch.zeros((), device=dev)
 
     return step
 

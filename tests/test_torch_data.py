@@ -65,8 +65,12 @@ def test_git_collator_array_equal(add_ans, pixel_dtype, policy):
 
 
 def test_collator_rejects_bf16_staging_and_ragged_groups():
-    with pytest.raises(NotImplementedError, match="ml_dtypes"):
-        tdataset.GITCollator(ttok.make_test_wordpiece(), pixel_dtype="bf16")
+    # bf16 staging is ported (tests/test_torch_loop_options.py holds its
+    # bits to the JAX collators'); an unknown staging dtype is refused
+    assert tdataset.GITCollator(ttok.make_test_wordpiece(),
+                                pixel_dtype="bf16").pixel_dtype == np.uint16
+    with pytest.raises(ValueError, match="unknown pixel_dtype"):
+        tdataset.GITCollator(ttok.make_test_wordpiece(), pixel_dtype="bf8")
     col = tdataset.GITCollator(ttok.make_test_wordpiece(), nframe=2,
                                samp_policy="uniform")
     items = _items(n_groups=2)
