@@ -47,7 +47,16 @@ its kernels:
   same bytes as the thread's) and f32 pixel staging against the default
   bf16 (the pixel bytes an update of both);
   and a seeded full-width GIT-base checkpoint in HF GitForCausalLM names
-  loaded by ``load_pretrained_params`` and served one batch.
+  loaded by ``load_pretrained_params`` and served one batch;
+- the offline stages and the CLIs: stage A (``extract`` with repr over 4
+  in-memory videos of 300-2,500 frames, GIT-base vision in bf16, the
+  selection held to the host oracle on the features read back), stage B
+  (``gen_sample.main``: captions of 8 x 32 stored frames by GIT-base,
+  then BERT-base-dims scores of 64 questions x 32 captions, the scorer
+  held to the CPU), and the single-video ``predict`` and JSONL
+  ``serve`` CLIs through ``main(argv)`` on raw AVI files at 6 frames
+  (GIT-mask forward K1 in the prompt fill, also held at both CLI shapes
+  against its plain version).
 
 Every kernel row carries the kernel's device time from ``torch.profiler``
 beside CUDA events round its Python call (the backward rows: every
@@ -2461,10 +2470,476 @@ def phase_git_load():
     torch.cuda.empty_cache()
     return row
 
+# ---- offline stages and the CLIs ------------------------------------------
+
+# stage A: extract's repr defaults (K 16, W 8, 224x224, every frame) over
+# four in-memory videos whose lengths fall in the 512, 1024 and 2048
+# buckets and past the 2,048-frame clamp; scenes of seeded colours with
+# per-frame noise, so neighbouring frames are alike and scenes are not
+STAGE_A = dict(lengths=(300, 700, 1500, 2500), K=16, W=8, img=224,
+               scenes=8, seed=0)
+# device lcl (an f32 cumulative sum over up to 2,048 rows) against the
+# oracle's dense f64 sums of the same features: the cumulative sum's
+# rounding grows with the row count
+TOL_LCL = 1e-4
+# stage B: gen_cap over 8 videos of K 32 stored frames in batches of
+# batch_rows 4 (128 rows, GIT-base, 30 tokens); gen_inds on 8 questions a
+# video (64 questions x 32 captions, BERT-base-cased dims, 64 tokens)
+STAGE_B = dict(videos=8, frames=32, questions=8, img=224, seed=7)
+GIT_VOCAB, BERT_CASED_VOCAB = 30522, 28996
+# the scorer on the card against the same weights on the CPU, f32 with
+# TF32 off through 12 layers: 2^-12 of the logit scale
+TOL_F32_DEEP = 2.0 ** -12
+# predict and the serve CLI: git-base-msrvtt-qa dims, the CLIs' defaults
+# (nframe 6, 224x224, batch 8, 16 stored frames, u8 pixels), raw AVIs of
+# 240x320 (so frames go through the PIL resize and crop) when PIL is
+# installed
+CLI = dict(model="microsoft/git-base-msrvtt-qa", nframe=6, img=224,
+           height=240, width=320, predict_frames=30, serve_frames=20,
+           requests=8, batch_size=8, max_txt_len=20,
+           question="what is the man doing in the kitchen", seed=11)
+
+
+class MemoryStoreWriter:
+    """FrameStoreWriter's interface over host memory (the card's
+    installation has no h5py)."""
+
+    def __init__(self, path, num_videos, num_frames, img_hw):
+        self.rows = np.zeros((num_videos, num_frames, 3 * img_hw * img_hw),
+                             np.float32)
+
+    def write(self, row, frames_chw):
+        self.rows[row] = frames_chw.reshape(self.rows.shape[1], -1)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        pass
+
+
+def _scene_video(n, spec, seed):
+    """(n, S, S, 3) uint8: ``spec['scenes']`` scenes of a seeded colour
+    field, each frame with one of 97 noise fields and one of 13
+    brightness steps (no two frames of a scene alike; sums stay below
+    256)."""
+    rng = np.random.default_rng(seed)
+    s = spec["img"]
+    base = rng.integers(0, 160, (spec["scenes"], s, s, 3), dtype=np.uint8)
+    bank = rng.integers(0, 64, (97, s, s, 3), dtype=np.uint8)
+    t = np.arange(n)
+    frames = base[t * spec["scenes"] // n]
+    frames += bank[t % 97]
+    frames += (2 * (t % 13)).astype(np.uint8)[:, None, None, None]
+    return frames
+
+
+def phase_stage_a():
+    """``extract`` with repr on the card (the decode and writer seams hold
+    the videos and the store in host memory), then the same tower's
+    features read back: the device lcl within TOL_LCL of the oracle's
+    dense lcl, the picks equal to the oracle's heap search over the
+    device lcl, the store rows the picked frames."""
+    from sasvqa_torch.models.git import GIT_BASE
+    from sasvqa_torch.sampling import mdf
+    from sasvqa_torch.tools import extract_frames as ef
+    from sasvqa_torch.tools.hf_checkpoint import hf_clip_vision_shapes
+    spec = STAGE_A
+    videos = {f"vid{i}": _scene_video(n, spec, spec["seed"] + i)
+              for i, n in enumerate(spec["lengths"])}
+    writers = []
+
+    def open_writer(*a):
+        writers.append(MemoryStoreWriter(*a))
+        return writers[-1]
+
+    with tempfile.TemporaryDirectory() as root:
+        ckpt, _, write_s = write_hf_checkpoint(
+            os.path.join(root, "vision"),
+            hf_clip_vision_shapes(GIT_BASE.vision), seed=5)
+        args = ef.build_argparser().parse_args(
+            ["--sampling_strategy", "repr", "--K", str(spec["K"]), "--W",
+             str(spec["W"]), "--img_size", str(spec["img"]),
+             "--vision_weights", ckpt])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        counter = ef.extract(
+            list(videos), os.path.join(root, "out"), args,
+            open_writer=open_writer,
+            decode=lambda path, s, intv: videos[path][::intv],
+            device="cuda")
+        torch.cuda.synchronize()
+        extract_s = time.perf_counter() - t0
+        launches = dict(_build.launch_counts)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        with open(os.path.join(root, "out", "vidmapping.json")) as f:
+            vidmap = json.load(f)
+        enc = ef.MDFEncoder(spec["K"], spec["W"], weights_path=ckpt,
+                            img_size=spec["img"], device="cuda")
+    per_video, encoded, encode_s = [], 0, 0.0
+    for name, raw in videos.items():
+        frames = ef.normalize_frames(raw)
+        padded, n, w = enc.pad(frames)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        feats = enc.encode(padded)
+        torch.cuda.synchronize()
+        encode_s += time.perf_counter() - t0
+        encoded += len(padded)
+        with torch.inference_mode():
+            sel_ms = cuda_ms(lambda: mdf.mdf_select_padded(
+                feats, n, spec["K"], w), reps=5)
+            picks, exhausted = mdf.mdf_select_padded(feats, n, spec["K"], w)
+            lcl = mdf.padded_lcl(feats, n, w)[:n].double().cpu().numpy()
+        picks = picks.cpu().numpy()
+        oracle_lcl = mdf.lcl_reference_numpy(feats[:n].cpu().numpy(), w)
+        oracle = mdf.heap_select_numpy(oracle_lcl, spec["K"], w)
+        # where the picks part from the oracle's: both picks' oracle lcl
+        # (a near-tie within the cumulative sum's rounding, or not)
+        part = next((i for i in range(spec["K"]) if picks[i] != oracle[i]),
+                    None)
+        stored = writers[0].rows[vidmap[name]]
+        per_video.append({
+            "video": name, "frames": len(raw), "encoded": n,
+            "bucket": len(padded), "W": w, "selection_ms": sel_ms,
+            "exhausted": bool(exhausted),
+            "lcl_max_abs_err": float(np.abs(lcl - oracle_lcl).max()),
+            "picks": picks.tolist(),
+            "picks_equal_heap_on_device_lcl": picks.tolist()
+            == mdf.heap_select_numpy(lcl, spec["K"], w).tolist(),
+            "picks_equal_oracle": part is None,
+            "oracle_parts_at": None if part is None else {
+                "pick": part, "oracle_lcl_of_ours": oracle_lcl[picks[part]],
+                "oracle_lcl_of_oracles": oracle_lcl[oracle[part]]},
+            "store_rows_are_the_picks": bool(np.array_equal(
+                stored, frames[picks].transpose(0, 3, 1, 2).reshape(
+                    spec["K"], -1)))})
+    row = {"phase": "stage_a", "videos": len(videos),
+           "frames_decoded": sum(len(v) for v in videos.values()),
+           "frames_selected_from": sum(v["encoded"] for v in per_video),
+           "extract_s": extract_s,
+           "frames_per_s": sum(v["encoded"] for v in per_video) / extract_s,
+           "encode_s": encode_s, "encode_frames_per_s": encoded / encode_s,
+           "checkpoint_write_s": write_s, "peak_gb": peak_gb,
+           "counters": counter, "tol_lcl": TOL_LCL, "per_video": per_video,
+           "launches": launches}
+    emit(row)
+    clamped = [v for v in per_video if v["frames"] > v["encoded"]]
+    check(counter["Zeros"] == 0
+          and {v["bucket"] for v in per_video} == set(ef.BUCKETS[-3:])
+          and [v["encoded"] for v in clamped] == [ef.BUCKETS[-1]],
+          f"stage_a: buckets or clamp not covered: {row}")
+    check(all(v["lcl_max_abs_err"] <= TOL_LCL
+              and v["picks_equal_heap_on_device_lcl"]
+              and v["store_rows_are_the_picks"] for v in per_video),
+          f"stage_a: selection disagrees with the oracle: {per_video}")
+    del enc
+    torch.cuda.empty_cache()
+    return row, launches
+
+
+def _wordpiece_dir(path, size, words):
+    """A vocab.txt of ``size`` entries: the special tokens, ``words``,
+    then fillers."""
+    head = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"] + list(words)
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "vocab.txt"), "w") as f:
+        f.write("\n".join(head + [f"w{i}" for i in range(size - len(head))])
+                + "\n")
+    return path
+
+
+def phase_stage_b():
+    """``gen_sample --task gen_cap`` then ``--task gen_inds`` through
+    ``main`` on the card (the store in host memory, seeded weights; the
+    scorer from a seeded HF-named checkpoint); the scorer's logits on the
+    first questions held against the same weights on the CPU."""
+    import copy
+
+    from sasvqa_torch.models.bert import BERTConfig
+    from sasvqa_torch.sampling.mif import score_question_captions
+    from sasvqa_torch.tools import gen_sample as gs
+    from sasvqa_torch.tools.hf_checkpoint import hf_bert_classifier_shapes
+    spec = STAGE_B
+    rng = np.random.default_rng(spec["seed"])
+    store = MemoryFrameStore(rng.standard_normal(
+        (spec["videos"], spec["frames"], spec["img"], spec["img"], 3),
+        dtype=np.float32))
+    words = TASK_WORDS + TASK_SUBJECTS + ["the", "is", "doing", "in",
+                                          "video"]
+    vidmap = {f"vid{v:04d}": v for v in range(spec["videos"])}
+    with tempfile.TemporaryDirectory() as root:
+        adir = os.path.join(root, "msvd_qa", "annotations")
+        hdir = os.path.join(root, "msvd_qa", "processed")
+        os.makedirs(adir)
+        os.makedirs(hdir)
+        with open(os.path.join(adir, "qa_train.json"), "w") as f:
+            json.dump([{"question": f"{TASK_WORDS[q % 5]} is the "
+                                    f"{TASK_SUBJECTS[q % 4]} doing in "
+                                    f"video {v}",
+                        "answer": "running", "video": f"{vid}.avi",
+                        "answer_type": TASK_WORDS[q % 5]}
+                       for vid, v in vidmap.items()
+                       for q in range(spec["questions"])], f)
+        with open(os.path.join(hdir, "vidmapping.json"), "w") as f:
+            json.dump(vidmap, f)
+        git_vocab = _wordpiece_dir(os.path.join(root, "git_vocab"),
+                                   GIT_VOCAB, words)
+        bert_vocab = _wordpiece_dir(os.path.join(root, "bert_vocab"),
+                                    BERT_CASED_VOCAB, words)
+        bert_ckpt, _, _ = write_hf_checkpoint(
+            os.path.join(root, "bert"),
+            hf_bert_classifier_shapes(BERTConfig()), seed=6)
+        base = ["--dataset_root", root]
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        gs.main(base + ["--task", "gen_cap", "--tokenizer_dir", git_vocab],
+                open_store=lambda path: store)
+        torch.cuda.synchronize()
+        cap_s = time.perf_counter() - t0
+        inds = base + ["--task", "gen_inds", "--tokenizer_dir", bert_vocab,
+                       "--weights", bert_ckpt]
+        t0 = time.perf_counter()
+        gs.main(inds)
+        torch.cuda.synchronize()
+        inds_s = time.perf_counter() - t0
+        launches = dict(_build.launch_counts)
+        with open(os.path.join(adir, "frame_captions.json")) as f:
+            caps = json.load(f)
+        with open(os.path.join(adir, "qa_winds_train.json")) as f:
+            winds = json.load(f)
+        args = gs.build_argparser().parse_args(inds)
+        args.device = torch.device("cpu")
+        tok = gs._tokenizer(args)
+        cpu_scorer = gs.build_scorer(args, max(tok.vocab.values()) + 1)
+    card_scorer = copy.deepcopy(cpu_scorer).cuda()
+
+    def scorer(model):
+        dev = next(model.parameters()).device
+
+        @torch.inference_mode()
+        def score(ids, mask, types):
+            return model(ids.to(dev), mask.to(dev), types.to(dev))
+        return score
+
+    errs = []
+    for sample in winds[:2]:
+        row_caps = caps[str(vidmap[sample["video"].split(".")[0]])]
+        got, want = (score_question_captions(scorer(m), tok,
+                                             sample["question"], row_caps)
+                     for m in (card_scorer, cpu_scorer))
+        errs.append(float(np.abs(got - want).max()
+                          / max(np.abs(want).max(), 1e-6)))
+    n_pairs = len(winds) * spec["frames"]
+    n_caps = sum(len(c) for c in caps.values())
+    row = {"phase": "stage_b", "captions": n_caps, "gen_cap_s": cap_s,
+           "captions_per_s": n_caps / cap_s, "qa_pairs": n_pairs,
+           "gen_inds_s": inds_s, "qa_pairs_per_s": n_pairs / inds_s,
+           "caption_example": caps["0"][0],
+           "distinct_captions": len({c for v in caps.values() for c in v}),
+           "scorer_rel_err_vs_cpu": errs, "tol": TOL_F32_DEEP,
+           "launches": launches}
+    emit(row)
+    check(sorted(caps, key=int) == [str(v) for v in range(spec["videos"])]
+          and all(len(c) == spec["frames"] and all(isinstance(x, str)
+                                                   for x in c)
+                  for c in caps.values())
+          and len(winds) == spec["videos"] * spec["questions"]
+          and all(sorted(s["sampled_inds"]) == list(range(spec["frames"]))
+                  for s in winds),
+          f"stage_b: malformed outputs: {row}")
+    check(max(errs) <= TOL_F32_DEEP,
+          f"stage_b: the scorer on the card disagrees with the CPU: {errs}")
+    del card_scorer, cpu_scorer
+    torch.cuda.empty_cache()
+    return row, launches
+
+
+def _cli_inputs():
+    """(decode route or None, frame (H, W)) on this machine, each printed
+    on its own line when the full form cannot run."""
+    import importlib.util
+
+    from sasvqa_torch.data import video_decode as vd
+    if vd.native_available():
+        route = "native shim"
+    elif importlib.util.find_spec("cv2") is not None:
+        route = ("cv2 fallback (the native shim did not load: "
+                 f"{vd._load_lib()[1]})")
+    else:
+        route = None
+        print("predict, serve_cli: neither the native shim nor cv2 loads: "
+              "the CLIs' main() cannot decode a video, so both phases "
+              "answer from frames in memory instead", flush=True)
+    hw = (CLI["height"], CLI["width"])
+    if importlib.util.find_spec("PIL") is None:
+        hw = (CLI["img"], CLI["img"])
+        print("predict, serve_cli: PIL is not installed: the videos are "
+              f"{hw[0]}x{hw[1]}, which needs no resize", flush=True)
+    return route, hw
+
+
+def _cli_video(path, n, hw, seed):
+    """A raw AVI of ``n`` seeded frames (tests/_torch_video.py's writer);
+    returns (path, the frames)."""
+    tests = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    from _torch_video import write_raw_avi
+    frames = np.random.default_rng(seed).integers(
+        0, 256, (n,) + hw + (3,), dtype=np.uint8)
+    return write_raw_avi(path, frames), frames
+
+
+def _cli_frames(frames_u8, k):
+    """What the CLIs' decode makes of written frames: the resize and
+    crop, ``k`` frames at uniform centres, normalised."""
+    from sasvqa_torch.tools import extract_frames as ef
+    sel = ef.geometry_frames(frames_u8, CLI["img"])
+    return ef.normalize_frames(sel[ef._uniform_centers(len(sel), k)])
+
+
+def phase_predict(root, route, hw):
+    """``tasks/predict.main`` on one video (GIT-base, seeded weights,
+    nframe 6): K1 in its prompt fill; then the same model's answer from
+    the frames decoded again, its prompt-fill logits on the K1 route
+    against the plain route's."""
+    from sasvqa_torch.tasks import predict as pr
+    path, raw = _cli_video(os.path.join(root, "predict.avi"),
+                           CLI["predict_frames"], hw, CLI["seed"])
+    argv = ["--video", path, "--question", CLI["question"], "--model",
+            CLI["model"]]
+    args = pr.build_argparser().parse_args(argv)
+    frames = _cli_frames(raw, CLI["nframe"])[None]
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    if route is not None:
+        answer = pr.main(argv)
+    else:
+        family, model, tok = pr.load_model(args, None, "cuda")
+        answer = pr.answer_from_frames(model, family, tok, frames,
+                                       CLI["question"], device="cuda")[
+            "answer"]
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = dict(_build.launch_counts)
+    t0 = time.perf_counter()
+    family, model, tok = pr.load_model(args, None, "cuda")
+    build_s = time.perf_counter() - t0
+    if route is not None:
+        t0 = time.perf_counter()
+        decoded = pr.load_frames(path, CLI["nframe"], CLI["img"])
+        decode_s = time.perf_counter() - t0
+        check(np.array_equal(decoded, frames),
+              "predict: decoded frames differ from the written ones")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = pr.answer_from_frames(model, family, tok, frames, CLI["question"],
+                                device="cuda")
+    torch.cuda.synchronize()
+    answer_s = time.perf_counter() - t0
+    ids = ([tok.cls_token_id]
+           + tok.encode(CLI["question"], add_special_tokens=False))
+    px = torch.from_numpy(frames).cuda()
+    logits = {}
+    with torch.inference_mode():
+        for flash in (None, False):
+            model.flash = flash
+            logits[flash], _ = model.prompt_fill(
+                torch.tensor([ids], device="cuda"),
+                torch.tensor([len(ids)], device="cuda"), px,
+                args.max_length)
+    model.flash = None
+    rel = ((logits[None] - logits[False]).abs().max()
+           / logits[False].abs().max()).item()
+    row = {"phase": "predict", "decode": route or "frames in memory",
+           "video": list(hw), "wall_s": wall_s, "model_build_s": build_s,
+           "decode_s": decode_s if route is not None else None,
+           "answer_s": answer_s, "answer": answer,
+           "generated_tokens": int((out["ids"] != 0).sum()),
+           "prompt_len": len(ids), "logits_rel_err_vs_plain": rel,
+           "tol": TOL_LOGITS_REL, "launches": launches}
+    emit(row)
+    check(isinstance(answer, str) and out["answer"] == answer
+          and rel <= TOL_LOGITS_REL
+          and launches["git_flash_fwd"] == model.config.num_layers,
+          f"predict: {row}")
+    del model
+    torch.cuda.empty_cache()
+    return row, launches
+
+
+def phase_serve_cli(root, route, hw):
+    """``tasks/serve.main`` over a JSONL file of 8 requests (GIT-base,
+    seeded weights, the CLI's defaults): one answer line a request, in
+    order, K1 in every batch's prompt fill."""
+    from sasvqa_torch.tasks import serve as sv
+    reqs = []
+    for i in range(CLI["requests"]):
+        path, raw = _cli_video(os.path.join(root, f"serve{i}.avi"),
+                               CLI["serve_frames"], hw, CLI["seed"] + 1 + i)
+        reqs.append({"video": path, "question":
+                     f"{TASK_WORDS[i % 5]} is the {TASK_SUBJECTS[i % 4]} "
+                     f"doing", "frames": raw})
+    req_path = os.path.join(root, "requests.jsonl")
+    out_path = os.path.join(root, "answers.jsonl")
+    with open(req_path, "w") as f:
+        for r in reqs:
+            f.write(json.dumps({"video": r["video"],
+                                "question": r["question"]}) + "\n")
+    argv = ["--requests", req_path, "--out", out_path, "--model",
+            CLI["model"]]
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    if route is not None:
+        rc = sv.main(argv)
+    else:
+        from sasvqa_torch.tasks.predict import load_model
+        args = sv.build_argparser().parse_args(argv)
+        family, model, tok = load_model(args, None, "cuda")
+        with sv.QAEngine(model, family, tok, nframe=CLI["nframe"],
+                         batch_size=CLI["batch_size"], pixel_dtype="u8",
+                         device="cuda") as engine, \
+                open(out_path, "w") as out:
+            sv.serve_requests(
+                engine, reqs, lambda r: _cli_frames(r["frames"], 16), out,
+                batch_size=CLI["batch_size"])
+        rc = 0
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = dict(_build.launch_counts)
+    with open(out_path) as f:
+        lines = [json.loads(line) for line in f]
+    row = {"phase": "serve_cli", "decode": route or "frames in memory",
+           "video": list(hw), "requests": len(reqs), "wall_s": wall_s,
+           "engine_batches": launches["git_flash_fwd"] // 6,
+           "answers": [x["answer"] for x in lines], "launches": launches}
+    emit(row)
+    check(rc == 0 and [x["question"] for x in lines]
+          == [r["question"] for r in reqs]
+          and all(isinstance(x["answer"], str) for x in lines)
+          and launches["git_flash_fwd"] > 0
+          and launches["git_flash_fwd"] % 6 == 0,
+          f"serve_cli: {row}")
+    torch.cuda.empty_cache()
+    return row, launches
+
+
+def predict_prompt_len():
+    """The prompt length predict gives CLI['question'] ([CLS] and its
+    tokens, within the default budget of 50 - 8)."""
+    tok = make_test_wordpiece()
+    n = 1 + len(tok.encode(CLI["question"], add_special_tokens=False))
+    return min(n, 42)
+
 
 PATHS = ("git_serve", "git_train", "blip_serve", "blip_train",
          "vitl16_grad_check", "task_loop", "clip_task_loop",
-         "blip_task_loop", "mc_blip_task_loop", "mc_clip_task_loop")
+         "blip_task_loop", "mc_blip_task_loop", "mc_clip_task_loop",
+         "stage_a", "stage_b", "predict", "serve_cli")
 KERNELS = ("git_flash_fwd", "git_flash_bwd", "git_flash_bwd_dq",
            "git_flash_bwd_dkv", _build.HASH_DROPOUT, "flash_fwd",
            "flash_bwd_dq", "flash_bwd_dkv")
@@ -2478,8 +2953,14 @@ def main() -> int:
     smi = phase_device()
     ptxas = phase_build()
     b, fr, tpf = SLICE["batch_size"], SLICE["frames"], 197
+    # GIT serving, a ragged 3-frame shape, predict's one video of 6 frames
+    # with its prompt, the serve CLI's batch of 8 x 6 frames
+    cli_img = CLI["nframe"] * tpf
     kernel_rows = phase_kernel([(b, 12, fr * tpf, SLICE["max_txt_len"], 64),
-                                (2, 12, 3 * tpf, 13, 64)])
+                                (2, 12, 3 * tpf, 13, 64),
+                                (1, 12, cli_img, predict_prompt_len(), 64),
+                                (CLI["batch_size"], 12, cli_img,
+                                 CLI["max_txt_len"], 64)])
     rate = _git_config("git-base").attention_dropout
     train_rows = phase_train_kernels(
         [(TRAIN["batch_size"], 12, TRAIN["frames"] * tpf,
@@ -2524,13 +3005,20 @@ def main() -> int:
         del ckpt
     phase_loop_options()
     phase_git_load()
+    _, stage_a = phase_stage_a()
+    _, stage_b = phase_stage_b()
+    route, hw = _cli_inputs()
+    with tempfile.TemporaryDirectory() as cli_root:
+        _, predict = phase_predict(cli_root, route, hw)
+        _, serve_cli = phase_serve_cli(cli_root, route, hw)
     # device-time windows taken, profiler steps taken again, lead records lost
     emit({"phase": "profiler", **PROFILER_STATS})
 
     by_path = {name: dict(zip(PATHS, (counts.get(name, 0) for counts in
                                       (git_serve, git_train, blip_serve,
                                        blip_train, vitl16, task, clip_task,
-                                       blip_task, mc_blip, mc_clip))))
+                                       blip_task, mc_blip, mc_clip, stage_a,
+                                       stage_b, predict, serve_cli))))
                for name in KERNELS}
     needed = {"git_serve": ("git_flash_fwd",),
               "git_train": ("git_flash_fwd", _build.HASH_DROPOUT)
@@ -2549,7 +3037,12 @@ def main() -> int:
                                  "flash_bwd_dkv"),
               "mc_blip_task_loop": ("flash_fwd", "flash_bwd_dq",
                                     "flash_bwd_dkv"),
-              "mc_clip_task_loop": ()}
+              "mc_clip_task_loop": (),
+              # the MDF tower and the captioner see 197 tokens a frame,
+              # the scorer 64: below both flash routes
+              "stage_a": (), "stage_b": (),
+              "predict": ("git_flash_fwd",),
+              "serve_cli": ("git_flash_fwd",)}
     check(all(by_path[k][path] > 0 for path, ks in needed.items()
               for k in ks),
           f"a kernel of a path was not launched: {by_path}")
@@ -2706,6 +3199,12 @@ def main() -> int:
                     "tflops": serve["tflops"],
                     "bound_share": serve["bound_share"]},
         "ragged_ms": ragged["fwd"]["kernel_ms"],
+        **{name: {key: r[key] for key in
+                  ("shape", "kernel_ms", "device_ms", "plain_ms",
+                   "bound_ms", "bound_by", "library_ms", "max_abs_err_o",
+                   "bound_share")}
+           for name, r in (("predict", kernel_rows[2]),
+                           ("serve_cli", kernel_rows[3]))},
         "kernel_share_of_prompt_fill": (
             slice_row["launches"]["git_flash_fwd"] / slice_row["batches"]
             * serve["kernel_ms"] / slice_row["prompt_fill_ms"]),

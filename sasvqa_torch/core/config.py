@@ -223,8 +223,9 @@ def build_shared_parser(desc: str = "sasvqa_torch shared config") -> argparse.Ar
     p.add_argument("--bf16", type=int, choices=[0, 1], default=1,
                    help="bf16 activations (replacement for fp16+GradScaler)")
     # deliberate divergence from the reference's DataLoader num_workers=4
-    # default (run_video_qa.py:184): the collation pool is opt-in (the
-    # port has none yet: n_workers > 0 raises)
+    # default (run_video_qa.py:184): the collation pool is opt-in
+    # (n_workers > 0 collates in that many spawned worker processes,
+    # data/pipeline.CollatorPool)
     p.add_argument("--n_workers", type=int, default=0)
     p.add_argument("--pin_mem", type=int, choices=[0, 1], default=1)
     # device / mesh (mesh_shape/mesh_axes: multi-device, not ported)

@@ -18,12 +18,19 @@ requests into fixed-shape batches:
 Weights come with the model: a seeded init, overlaid by
 ``presets.load_pretrained_params`` with a local HF checkpoint.
 
-The JSONL CLI front of the JAX package decodes videos through stage A,
-which is not ported yet; :func:`serve_requests` is its request loop.
+The JSONL CLI serves a file of requests through the engine, each video
+decoded through stage A's decode (``tasks/predict.load_frames``):
+
+    python -m sasvqa_torch.tasks.serve --requests reqs.jsonl \
+        --out answers.jsonl --model microsoft/git-base-msrvtt-qa \
+        --weights ./pretrained/git-base-msrvtt-qa --nframe 6
+
+``--platform cpu`` runs it on the CPU; the default is the GPU.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import queue
 import threading
@@ -37,6 +44,7 @@ import torch
 from sasvqa_torch.core.device import DeviceLike, resolve_device
 from sasvqa_torch.core.logging import LOGGER
 from sasvqa_torch.data.dataset import ClassifierCollator, GITCollator
+from sasvqa_torch.tasks.predict import load_frames, load_model
 from sasvqa_torch.tasks.run_video_qa import decode_answers
 from sasvqa_torch.train.steps import (make_classifier_eval_step,
                                       make_git_eval_step)
@@ -255,3 +263,77 @@ def serve_requests(engine, requests, decode, out, *, batch_size: int,
                 drain_one()
         while pending:
             drain_one()
+
+
+def build_argparser():
+    p = argparse.ArgumentParser(
+        description="batched video-QA serving over JSONL requests")
+    p.add_argument("--requests", required=True,
+                   help="JSONL file of {'video': path, 'question': str}")
+    p.add_argument("--out", required=True, help="JSONL output path")
+    p.add_argument("--model", default="microsoft/git-base-msrvtt-qa")
+    p.add_argument("--weights", default=None,
+                   help="local HF checkpoint dir")
+    p.add_argument("--orbax_ckpt", default=None,
+                   help="a training run's ckpt/ dir of this package's "
+                        "ModelSaver snapshots (the name is the JAX CLI's)")
+    p.add_argument("--orbax_step", type=int, default=-1,
+                   help="snapshot step to serve; -1 = latest (0 is a "
+                        "valid explicit step)")
+    p.add_argument("--tokenizer_dir", default=None)
+    p.add_argument("--ans2label_path", default=None,
+                   help="answer vocab JSON (required for classifiers)")
+    p.add_argument("--classifier", default="mlp")
+    p.add_argument("--num_labels", type=int, default=1000)
+    p.add_argument("--nframe", type=int, default=6)
+    p.add_argument("--img_size", type=int, default=224)
+    p.add_argument("--stored_frames", type=int, default=16,
+                   help="frames decoded per video before the collator's "
+                        "nframe re-sampling (the stage-A K)")
+    p.add_argument("--batch_size", type=int, default=8)
+    p.add_argument("--decode_workers", type=int, default=4,
+                   help="decode-ahead threads: enough decode throughput "
+                        "to fill engine batches without holding every "
+                        "clip in memory at once")
+    p.add_argument("--linger_ms", type=float, default=5.0)
+    p.add_argument("--pixel_dtype", default="u8",
+                   choices=["f32", "bf16", "u8"],
+                   help="request->device pixel wire format.  u8 is "
+                        "lossless here: the CLI's frames come from uint8 "
+                        "decodes (core/pixels.py)")
+    p.add_argument("--platform", default=None,
+                   help="'cpu' runs on the CPU; default: the GPU")
+    return p
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    args = build_argparser().parse_args(argv)
+    device = resolve_device("cpu" if args.platform == "cpu" else "cuda")
+    family, model, tokenizer = load_model(
+        args, args.orbax_step if args.orbax_step >= 0 else None, device)
+    ans2label = None
+    if args.ans2label_path:
+        with open(args.ans2label_path) as f:
+            ans2label = json.load(f)
+    with open(args.requests) as f:
+        requests = [json.loads(line) for line in f if line.strip()]
+    LOGGER.info(f"serving {len(requests)} requests "
+                f"(batch_size={args.batch_size})")
+
+    def decode(req):
+        return load_frames(req["video"], args.stored_frames,
+                           args.img_size)[0]
+
+    with QAEngine(model, family, tokenizer, ans2label=ans2label,
+                  nframe=args.nframe, batch_size=args.batch_size,
+                  linger_ms=args.linger_ms, pixel_dtype=args.pixel_dtype,
+                  device=device) as engine, open(args.out, "w") as out:
+        serve_requests(engine, requests, decode, out,
+                       batch_size=args.batch_size,
+                       decode_workers=args.decode_workers)
+    LOGGER.info(f"done: {engine.stats}")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

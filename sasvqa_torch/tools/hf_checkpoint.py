@@ -1,9 +1,11 @@
 """Seeded checkpoints in Hugging Face's key names, written without
 ``transformers``, and a check that a loaded model holds a checkpoint.
 
-``hf_clip_shapes``, ``hf_git_shapes`` and ``hf_blip_shapes`` give the
-state-dict names and shapes of ``CLIPModel``, ``GitForCausalLM`` and
-``BlipModel`` for the port's configs; ``write_hf_checkpoint`` writes a
+``hf_clip_shapes``, ``hf_clip_vision_shapes``, ``hf_git_shapes``,
+``hf_blip_shapes`` and ``hf_bert_classifier_shapes`` give the state-dict
+names and shapes of ``CLIPModel``, ``CLIPVisionModel``,
+``GitForCausalLM``, ``BlipModel`` and ``BertForSequenceClassification``
+for the port's configs; ``write_hf_checkpoint`` writes a
 seeded ``pytorch_model.bin`` of such names that
 ``models.presets.load_pretrained_params`` reads like a saved HF model.
 ``check_loaded`` holds a model's parameters to a converted (Flax-layout)
@@ -65,6 +67,45 @@ def hf_clip_shapes(tc, vc):
     _hf_clip_vision(shapes, "vision_model", vc)
     shapes["visual_projection.weight"] = (vc.projection_dim, vc.hidden_size)
     shapes["text_projection.weight"] = (vc.projection_dim, d)
+    return shapes
+
+
+def hf_clip_vision_shapes(vc):
+    """State-dict names and shapes of HF ``CLIPVisionModel`` for the
+    port's CLIPVisionConfig (the MDF encoder's ``--vision_weights``)."""
+    shapes = {}
+    _hf_clip_vision(shapes, "vision_model", vc)
+    return shapes
+
+
+def hf_bert_classifier_shapes(bc):
+    """State-dict names and shapes of HF ``BertForSequenceClassification``
+    for the port's BERTConfig (stage B's scorer)."""
+    d, ff = bc.hidden_size, bc.intermediate_size
+    shapes = {"bert.embeddings.word_embeddings.weight": (bc.vocab_size, d),
+              "bert.embeddings.position_embeddings.weight":
+                  (bc.max_position_embeddings, d),
+              "bert.embeddings.token_type_embeddings.weight":
+                  (bc.type_vocab_size, d),
+              "bert.embeddings.LayerNorm.weight": (d,),
+              "bert.embeddings.LayerNorm.bias": (d,)}
+    for i in range(bc.num_layers):
+        p = f"bert.encoder.layer.{i}"
+        for name in ("attention.self.query", "attention.self.key",
+                     "attention.self.value", "attention.output.dense"):
+            shapes[f"{p}.{name}.weight"] = (d, d)
+            shapes[f"{p}.{name}.bias"] = (d,)
+        for ln in ("attention.output.LayerNorm", "output.LayerNorm"):
+            shapes[f"{p}.{ln}.weight"] = (d,)
+            shapes[f"{p}.{ln}.bias"] = (d,)
+        shapes[f"{p}.intermediate.dense.weight"] = (ff, d)
+        shapes[f"{p}.intermediate.dense.bias"] = (ff,)
+        shapes[f"{p}.output.dense.weight"] = (d, ff)
+        shapes[f"{p}.output.dense.bias"] = (d,)
+    shapes["bert.pooler.dense.weight"] = (d, d)
+    shapes["bert.pooler.dense.bias"] = (d,)
+    shapes["classifier.weight"] = (bc.num_labels, d)
+    shapes["classifier.bias"] = (bc.num_labels,)
     return shapes
 
 

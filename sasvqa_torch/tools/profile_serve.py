@@ -1,6 +1,6 @@
 """Where a serving batch spends its time on the GPU.
 
-    python3 -m sasvqa_torch.tools.profile_serve [--family git|blip]
+    python3 -m sasvqa_torch.tools.profile_serve [--family git|blip|mdf]
                                                 [--trace DIR]
 
 Runs ``torch.profiler`` at full width (seeded random weights, bf16
@@ -10,7 +10,10 @@ activations) at the serving shapes of chip_smoke.py:
   8 frames of 224x224, 20 prompt tokens, 50-token budget;
 - ``blip``: the BLIP-base classifier's vision tower alone and its whole
   eval forward, batch 16, 4 frames of 384x384 (577 tokens a frame), 20
-  text tokens, 1000 labels.
+  text tokens, 1000 labels;
+- ``mdf``: stage A's MDF encoder (GIT-base's vision tower in bf16, its
+  plain attention in f32) over the 2,048-frame bucket of 224x224 frames,
+  then the selection (K 16, W 8) on its pooled features.
 
 Prints one JSON line per part: host wall ms (ending in a synchronize),
 the device time of every CUDA kernel summed, the device busy share (union
@@ -81,13 +84,16 @@ def profile_part(name, fn, trace_dir=None, top=8, keep_all=False):
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--family", choices=("git", "blip"), default="git")
+    p.add_argument("--family", choices=("git", "blip", "mdf"),
+                   default="git")
     p.add_argument("--trace", default=None)
     args = p.parse_args(argv)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     if args.family == "blip":
         return _profile_blip(args.trace)
+    if args.family == "mdf":
+        return _profile_mdf(args.trace)
     _, model = build_model(
         {"model": {"pretrained_model": "microsoft/git-base-msrvtt-qa"}},
         dtype=torch.bfloat16, device="cuda",
@@ -144,6 +150,24 @@ def _profile_blip(trace_dir) -> int:
                          ("classifier_forward", forward)):
             row = profile_part(name, fn, trace_dir)
             row.update(batch=b, frames=frames, img=img)
+            print(json.dumps(row), flush=True)
+    return 0
+
+
+def _profile_mdf(trace_dir) -> int:
+    from sasvqa_torch.sampling.mdf import mdf_select_padded
+    from sasvqa_torch.tools.extract_frames import MDFEncoder
+    enc = MDFEncoder(16, 8, device="cuda")
+    n = 2048
+    frames = torch.randn((n, 224, 224, 3),
+                         generator=torch.Generator().manual_seed(0)).numpy()
+    feats = enc.encode(frames)                  # warm-up
+    with torch.inference_mode():
+        for name, fn in (("mdf_encode", lambda: enc.encode(frames)),
+                         ("mdf_select", lambda: mdf_select_padded(
+                             feats, n - 100, 16, 8))):
+            row = profile_part(name, fn, trace_dir)
+            row.update(frames=n, img=224)
             print(json.dumps(row), flush=True)
     return 0
 

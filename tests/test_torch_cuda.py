@@ -815,3 +815,24 @@ def test_blip_loop_step_on_loaded_weights_runs_k5_k6(cuda, tmp_path):
     # 2 micros x 2 vision layers
     assert launches["flash_fwd"] == 4, launches
     assert launches["flash_bwd_dq"] == launches["flash_bwd_dkv"] == 4
+
+
+@pytest.mark.parametrize("n,w,bucket", [(300, 8, 512), (1500, 8, 2048),
+                                        (20, 4, 64)])
+def test_mdf_selection_on_the_card_equals_cpu(cuda, n, w, bucket):
+    """MDF selection on CUDA tensors picks what it picks on the CPU from
+    the same padded features, the exhausted fallback included, reading
+    nothing back inside its loop."""
+    from sasvqa_torch.sampling.mdf import (mdf_reference_numpy,
+                                           mdf_select_padded)
+    feats = np.random.default_rng(n).normal(size=(n, 768)).astype(
+        np.float32)
+    padded = np.zeros((bucket, 768), np.float32)
+    padded[:n] = feats
+    got, got_ex = mdf_select_padded(torch.from_numpy(padded).to(cuda), n,
+                                    16, w)
+    want, want_ex = mdf_select_padded(torch.from_numpy(padded), n, 16, w)
+    assert got.device.type == "cuda"
+    assert got.cpu().tolist() == want.tolist()
+    assert bool(got_ex) == bool(want_ex) == (n == 20)
+    assert got.cpu().tolist() == mdf_reference_numpy(feats, 16, w).tolist()

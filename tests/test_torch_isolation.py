@@ -1,6 +1,7 @@
 """The port stands alone: no JAX, Flax, Optax, ml_dtypes, transformers or
-sasvqa_tpu imports, h5py only where a frame store is opened and
-safetensors only where a checkpoint file is read; nothing runs on the CPU
+sasvqa_tpu imports, h5py only where a frame store is opened, safetensors
+only where a checkpoint file is read, cv2 only where the decoder falls
+back to it and PIL only where frames are resized; nothing runs on the CPU
 unless asked; CPU tensors never reach the kernel."""
 
 import ast
@@ -15,7 +16,7 @@ import torch
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "sasvqa_torch")
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "ml_dtypes", "h5py",
-             "safetensors", "transformers", "sasvqa_tpu"}
+             "safetensors", "transformers", "sasvqa_tpu", "cv2", "PIL"}
 
 
 def _port_files():
@@ -37,12 +38,16 @@ def _port_modules():
 
 
 # the one place the port may import h5py: inside the function that opens
-# an HDF5 frame store, and safetensors: inside the function that reads a
-# checkpoint file; so that importing the port needs neither (the card's
-# installation may lack both)
+# an HDF5 frame store; safetensors: inside the function that reads a
+# checkpoint file; cv2: inside the decoder's fallback import; PIL: inside
+# the frame resize; so that importing the port needs none of them (the
+# card's installation may lack each)
 LAZY_SITES = {"h5py": ("sasvqa_torch/data/frame_store.py", "_open_h5"),
               "safetensors": ("sasvqa_torch/models/presets.py",
-                              "_load_torch_state_dict")}
+                              "_load_torch_state_dict"),
+              "cv2": ("sasvqa_torch/data/video_decode.py", "_import_cv2"),
+              "PIL": ("sasvqa_torch/tools/extract_frames.py",
+                      "geometry_frames")}
 
 
 def test_no_forbidden_imports_ast():

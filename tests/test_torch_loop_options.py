@@ -495,7 +495,12 @@ def test_a_dead_pool_worker_fails_and_close_leaves_nothing(synth, deadline):
         while not multiprocessing.active_children():
             time.sleep(0.05)
         time.sleep(3.0)        # spawned, imported, inside the sleep
-        os.kill(multiprocessing.active_children()[0].pid, signal.SIGKILL)
+        # the first-spawned worker: the executor's manager thread watches
+        # its sentinel from its first wait, while a later worker's may be
+        # added after the manager re-armed its wait (then its death goes
+        # unseen until the other worker's 30 s result)
+        first = next(iter(pool._executor._processes.values()))
+        os.kill(first.pid, signal.SIGKILL)
         consumer.join(POOL_TIMEOUT)
         assert len(errors) == 1 and isinstance(errors[0], BrokenProcessPool)
     finally:
