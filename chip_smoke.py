@@ -56,7 +56,17 @@ its kernels:
   held to the CPU), and the single-video ``predict`` and JSONL
   ``serve`` CLIs through ``main(argv)`` on raw AVI files at 6 frames
   (GIT-mask forward K1 in the prompt fill, also held at both CLI shapes
-  against its plain version).
+  against its plain version);
+- the retrieval task (``run_retrieval.main``: CLIP ViT-B/16's projected
+  towers loaded from the same seeded checkpoint, 256 videos of 4 frames,
+  its metrics held to ranks recomputed in f64 from its embeddings), the
+  vision tower's remat policies at vitl16 (full recompute, the two
+  dot-saving named policies, no remat: ms an update, peak memory, K1/K2/K4
+  launches, and each policy's loss and gradients held to full
+  recompute's), ``profile_step``'s flagship probes, and ``quickstart
+  --family git`` through its store seams; every K1 and K2 shape of the
+  sweep and of the probes was held against the plain versions above
+  (the sweep's B 4 among the training shapes).
 
 Every kernel row carries the kernel's device time from ``torch.profiler``
 beside CUDA events round its Python call (the backward rows: every
@@ -114,14 +124,17 @@ from sasvqa_torch.tools.bwd_yardstick import (PROFILER_STATS, device_window,
 from sasvqa_torch.tools.hf_checkpoint import (check_loaded, hf_clip_shapes,
                                               hf_git_shapes,
                                               write_hf_checkpoint)
+from sasvqa_torch.tools import profile_config as pc
+from sasvqa_torch.tools import profile_step as ps
 from sasvqa_torch.train import steps as train_steps
 from sasvqa_torch.train.steps import create_train_state, make_scan_train_step
 
-# H100 SXM dense peaks (NVIDIA data sheet) for the roofline bound; the
-# dropout hash is scalar integer work, bounded here by the 67 TFLOP/s
-# non-tensor f32 rate (the card's integer rate is not higher)
-PEAK_BF16_FLOPS = 989e12
-PEAK_BYTES_PER_S = 3.35e12
+# H100 SXM dense peaks (NVIDIA data sheet; ``profile_step`` holds the bf16
+# and memory rates) for the roofline bound; the dropout hash is scalar
+# integer work, bounded here by the 67 TFLOP/s non-tensor f32 rate (the
+# card's integer rate is not higher)
+PEAK_BF16_FLOPS = ps.PEAK_BF16_FLOPS
+PEAK_BYTES_PER_S = ps.PEAK_BYTES_PER_S
 PEAK_SCALAR_OPS = 67e12
 # integer operations of hash_keep per (row, col) pair: 5 multiplies,
 # 3 adds, 3 xors, 3 shifts, 1 and, 1 compare
@@ -1393,8 +1406,8 @@ def git_flash_bwd_part_bounds(num_img, text_mask, h, dh):
 
 def phase_split_kernels(rate):
     """K3 (git_flash_bwd_dq + git_flash_bwd_dkv) vs its plain version and
-    vs K2, and K2 vs its own (fused) plain version, at each SPLIT_SHAPES
-    entry and rates 0 and ``rate``, with K3's gradients and K2's dK/dV
+    vs K2, and K1 and K2 vs their own (fused) plain versions, at each
+    SPLIT_SHAPES entry and rates 0 and ``rate``, with K3's gradients and K2's dK/dV
     bit-identical across two launches; K3, K2, plain and SDPA times and
     the bounds, and at the SPLIT_MAIN shapes K2's reduction alone and K1.
     Returns the rows and the crossover in S per rate, a measurement
@@ -1423,6 +1436,11 @@ def phase_split_kernels(rate):
             fused = gf._launch_bwd(*args)
             k2_rep = k2_repeat(fused, args)
             sub = [x[:rows_plain] for x in (q, k, v, o, lse, do, mask)]
+            ref_o, ref_lse = git_flash_attention_reference(
+                *sub[:3], sub[6], num_img, r, seed)
+            k1_err = ((sub[3].float() - ref_o.float()).abs().max().item(),
+                      (sub[4] - ref_lse).abs().max().item())
+            del ref_o, ref_lse
             ref = gf.git_flash_backward_split_reference(*sub, num_img, r,
                                                         seed)
             ref_fused = gf.git_flash_backward_reference(*sub, num_img, r,
@@ -1442,6 +1460,8 @@ def phase_split_kernels(rate):
             row = {"phase": "split_kernels", "case": name, "rate": r,
                    "shape": shape, "attended_pairs": pairs,
                    "plain_rows": rows_plain,
+                   "k1_max_abs_err_o_vs_plain": k1_err[0],
+                   "k1_max_abs_err_lse_vs_plain": k1_err[1],
                    "max_abs_err_vs_plain": {n: e for n, (e, _) in
                                             vs_plain.items()},
                    "max_abs_ref_plain": {n: m for n, (_, m) in
@@ -1497,6 +1517,8 @@ def phase_split_kernels(rate):
             else:
                 row["library_ms"] = None
             emit(row)
+            check(k1_err[0] <= TOL_O and k1_err[1] <= TOL_LSE,
+                  f"K1 disagrees with its plain version: {row}")
             check(bit_equal and dkv_bit_equal,
                   f"K3's gradients differ between two launches: {row}")
             check(k2_rep["dkv_bit_identical"],
@@ -2160,6 +2182,38 @@ class FlashShapes:
 
     def __exit__(self, *exc):
         fa.flash_forward, fa.flash_backward = self._real
+
+
+class GitFlashShapes:
+    """While active, records the (B, H, num_img, L, Dh) of every K1
+    (``fwd``) launch and every git-flash backward (``bwd``: K2, or K3 off
+    the fused route) of the autograd path, so that each is held against
+    its plain version."""
+
+    def __init__(self):
+        self.shapes = {"fwd": set(), "bwd": set()}
+
+    def _add(self, part, q, attention_mask, num_img):
+        b, h, _, dh = q.shape
+        self.shapes[part].add((b, h, num_img, attention_mask.shape[1], dh))
+
+    def __enter__(self):
+        self._real = real_fwd, real_bwd = gf._launch, gf.git_flash_backward
+
+        def fwd(q, k, v, attention_mask, num_img, *rest):
+            self._add("fwd", q, attention_mask, num_img)
+            return real_fwd(q, k, v, attention_mask, num_img, *rest)
+
+        def bwd(q, k, v, o, lse, do, attention_mask, num_img, *rest):
+            self._add("bwd", q, attention_mask, num_img)
+            return real_bwd(q, k, v, o, lse, do, attention_mask, num_img,
+                            *rest)
+
+        gf._launch, gf.git_flash_backward = fwd, bwd
+        return self
+
+    def __exit__(self, *exc):
+        gf._launch, gf.git_flash_backward = self._real
 
 
 def phase_blip_task_loop():
@@ -2928,6 +2982,327 @@ def phase_serve_cli(root, route, hw):
     return row, launches
 
 
+# ---- retrieval, the remat-policy sweep, profile_step, quickstart ----------
+
+# the retrieval task on configs/msvd_qa_base3.json's CLIP ViT-B/16 (its
+# nframe 4 and score_agg_func lse), the projected towers loaded from the
+# seeded HF CLIPModel checkpoint: 256 videos of 4 stored frames of
+# 224x224 (0.62 GB of f32 frames, every stored frame encoded), one
+# caption a video, chunks of val_batch_size 64
+RETRIEVAL = dict(videos=256, questions=1, stored_frames=4, img=224, val=256,
+                 test=16, overrides={"val_batch_size": 64,
+                                     "max_txt_len": 20})
+# the sweep at profile_config's vitl16 shape (GIT with ViT-L/14, B=8, 16
+# frames, S = 4144, both dropouts 0.1: K1, K2 and K4): one warm-up update,
+# whose loss and gradients are held against full recompute's, then this
+# many timed updates
+SWEEP_UPDATES = 2
+# no remat does not fit at B 8 on the card's 80 GB (77.6 GB allocated when
+# a 0.5 GB attention buffer failed, chip_smoke's first run of the sweep):
+# it runs at B 4, held against full recompute at B 4
+NO_REMAT_BATCH = 4
+# two f32 cosine scores of 512-term dot products (unit vectors) differ
+# from their f64 values by at most 512 * 2^-24 = 2^-15 each: ranks from
+# the device's f32 scores and from f64 may part only where the true video
+# and a competitor lie that close
+TOL_RANK_TIE = 2.0 ** -15
+PROFILE_STEP_ITERS = 3
+
+
+def phase_retrieval(ckpt):
+    """``run_retrieval.main(argv, open_store=...)`` at full width: the
+    towers built by the task, every converted leaf of the checkpoint
+    checked in them after the load, the encode and the scoring timed
+    (wrapped, nothing else changed), and the returned metrics held equal
+    to ranks recomputed in f64 numpy from the returned embeddings."""
+    from sasvqa_torch.tasks import run_retrieval as rr
+    from sasvqa_torch.train.retrieval import retrieval_metrics
+    t_setup = time.perf_counter()
+    store = _memory_store(RETRIEVAL)
+    towers, reports, embeds, encode_s, score_s, sims = [], [], [], [], [], []
+    real = {name: getattr(rr, name) for name in
+            ("build_towers", "merge_pretrained", "encode_corpus",
+             "clip_score_matrix")}
+
+    def build_towers(*a, **kw):
+        towers.extend(real["build_towers"](*a, **kw))
+        return tuple(towers)
+
+    def merge(*a, **kw):
+        reports.append(real["merge_pretrained"](*a, **kw))
+        return reports[-1]
+
+    def timed(name, out, keep=None):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = real[name](*a, **kw)
+            torch.cuda.synchronize()
+            out.append(time.perf_counter() - t0)
+            if keep is not None:
+                keep.append(res)
+            return res
+        return run
+
+    with tempfile.TemporaryDirectory() as root:
+        cfg = _base3_cfg(root, RETRIEVAL)
+        cfg["model"]["pretrained_weights"] = ckpt["dir"]
+        cfg["tokenizer_dir"] = _clip_tokenizer(cfg, root)
+        path = os.path.join(root, "cfg.json")
+        with open(path, "w") as f:
+            json.dump(cfg, f)
+        setup_s = time.perf_counter() - t_setup
+        for name, fn in (("build_towers", build_towers),
+                         ("merge_pretrained", merge),
+                         ("encode_corpus", timed("encode_corpus", encode_s,
+                                                 embeds)),
+                         ("clip_score_matrix", timed("clip_score_matrix",
+                                                     score_s, sims))):
+            setattr(rr, name, fn)
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _build.reset_launch_counts()
+            t0 = time.perf_counter()
+            metrics = rr.main(["--config", path],
+                              open_store=lambda p: store)
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+            launches = dict(_build.launch_counts)
+        finally:
+            for name, fn in real.items():
+                setattr(rr, name, fn)
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    emb = embeds[0]
+    # the scoring again on the same embeddings: its time past first use
+    again = [cuda_ms(lambda: rr.clip_score_matrix(
+        emb["text"], emb["video"], "lse", "cuda"), reps=5)]
+    txt_tower, vis_tower = towers
+    checks = [check_loaded(txt_tower, cv.convert_clip_text(
+                  ckpt["sd"], ckpt["tc"].num_layers)),
+              check_loaded(vis_tower, cv.convert_clip_vision(
+                  ckpt["sd"], ckpt["vc"].num_layers))]
+    n_params = [len(list(t.parameters())) for t in towers]
+    txt = emb["text"].astype(np.float64)
+    vid = emb["video"].astype(np.float64)
+    txt /= np.linalg.norm(txt, axis=-1, keepdims=True)
+    vid /= np.linalg.norm(vid, axis=-1, keepdims=True)
+    sim = np.einsum("td,vfd->tvf", txt, vid)
+    top = sim.max(axis=-1, keepdims=True)
+    lse = (top + np.log(np.exp(sim - top).sum(axis=-1, keepdims=True)))[..., 0]
+    f64_metrics = retrieval_metrics(lse)
+    n = RETRIEVAL["videos"]
+    # per query: its rank under the device's f32 scores and under f64;
+    # where they part, the nearest competitor of the true video in f64
+    rank32, rank64 = (np.argsort(np.argsort(-x, axis=1), axis=1)[
+        np.arange(n), np.arange(n)] for x in (sims[0], lse))
+    parted = np.nonzero(rank32 != rank64)[0]
+    competitor = np.abs(lse - lse[np.arange(n), np.arange(n)][:, None])
+    competitor[np.arange(n), np.arange(n)] = np.inf
+    gaps = competitor[parted].min(axis=1) if len(parted) else np.zeros(0)
+    row = {"phase": "retrieval", "model": cfg["model"]["pretrained_model"],
+           "videos": n, "frames": RETRIEVAL["stored_frames"],
+           "img": RETRIEVAL["img"],
+           "val_batch_size": cfg["val_batch_size"],
+           "score_agg_func": cfg["score_agg_func"], "setup_s": setup_s,
+           "wall_s": wall_s, "encode_s": encode_s[0],
+           "encode_videos_per_s": n / encode_s[0],
+           "similarity_ms": score_s[0] * 1e3,
+           "similarity_ms_again": again[0],
+           "max_memory_allocated_gb": peak_gb,
+           "frames_gb": store.frames.nbytes / 1e9,
+           "loaded": [len(r["loaded"]) for r in reports],
+           "missing_in_ckpt": [r["missing_in_ckpt"] for r in reports],
+           "mismatched": [r["mismatched"] for r in reports],
+           "leaves_checked": [c[0] for c in checks],
+           "leaves_differing": [c[1] for c in checks],
+           "parameters": n_params, "embed_shapes": {
+               k: list(v.shape) for k, v in emb.items()},
+           "metrics": metrics, "metrics_f64": f64_metrics,
+           "queries_ranked_apart_f32_f64": len(parted),
+           "nearest_competitor_gap_of_those": gaps.tolist(),
+           "tol_rank_tie": TOL_RANK_TIE, "launches": launches}
+    emit(row)
+    check(len(reports) == 2 and not any(row["mismatched"])
+          and not any(row["missing_in_ckpt"])
+          and row["loaded"] == row["leaves_checked"] == n_params
+          and not any(row["leaves_differing"]),
+          f"retrieval: the loaded towers are not the checkpoint's: {row}")
+    check(emb["text"].shape == (n, ckpt["vc"].projection_dim)
+          and emb["video"].shape == (n, RETRIEVAL["stored_frames"],
+                                     ckpt["vc"].projection_dim)
+          and np.isfinite(emb["text"]).all()
+          and np.isfinite(emb["video"]).all(),
+          f"retrieval: embeddings {row['embed_shapes']}")
+    check(metrics == retrieval_metrics(sims[0])
+          and (metrics == f64_metrics) == (len(parted) == 0)
+          and all(g <= TOL_RANK_TIE for g in gaps),
+          f"retrieval: metrics {metrics} vs f64 ranks {f64_metrics}, "
+          f"queries ranked apart {parted.tolist()} at gaps {gaps.tolist()}")
+    del towers, store
+    torch.cuda.empty_cache()
+    return row, launches
+
+
+def _sweep_policy(label, shape, ref):
+    """One policy of the sweep through ``profile_config.remat_row``: its
+    row (ms an update after the warm-up one, peak GB, launches), with the
+    warm-up update's loss and gradients held against ``ref``, full
+    recompute's, when given."""
+    grads = {}
+
+    def keep(model):
+        grads.update((n, p.grad.float().cpu())
+                     for n, p in model.named_parameters())
+
+    row = pc.remat_row(label, shape, SWEEP_UPDATES, torch.device("cuda"),
+                       warmed=keep)
+    check("error" not in row, f"remat sweep {label}: {row}")
+    loss = row["first_loss"]
+    if ref is not None:
+        rel = {n: ((g - ref["grads"][n]).norm()
+                   / ref["grads"][n].norm().clamp(min=1e-20)).item()
+               for n, g in grads.items()}
+        worst = max(rel, key=rel.get)
+        row.update(loss_rel_err=abs(loss - ref["loss"]) / abs(ref["loss"]),
+                   grad_rel_err_max=rel[worst], grad_rel_err_worst=worst)
+    return row, {"loss": loss, "grads": grads}
+
+
+def phase_remat_sweep():
+    """The vision tower's remat policies at vitl16 through the training
+    update (``make_git_train_step``, dropout on): full recompute, the two
+    dot-saving named policies, and no remat (at B 4, with full recompute
+    at B 4 as its reference), each from the same seeded weights, batch
+    and dropout draws.  Each row: ms an update (2 timed updates after the
+    warm-up one), peak GB, K1/K2/K4 launches, and the warm-up update's
+    loss and gradients against full recompute's at its batch (the gate
+    of the vitl16 remat check).  Also returns the (B, H, num_img, L, Dh)
+    of every K1 and K2 call, so that each is held against its plain
+    version."""
+    shape = pc.VITL16
+    _build.reset_launch_counts()
+    rows, refs = [], {}
+    runs = [(label, remat, policy, shape.batch)
+            for label, remat, policy in pc.REMAT_SWEEP if remat]
+    runs += [("full_recompute", True, None, NO_REMAT_BATCH),
+             ("no_remat", False, None, NO_REMAT_BATCH)]
+    with GitFlashShapes() as rec:
+        for label, remat, policy, batch in runs:
+            s = dataclasses.replace(shape, remat=remat, remat_policy=policy,
+                                    batch=batch)
+            row, out = _sweep_policy(label, s, refs.get(batch))
+            if label == "full_recompute":
+                refs[batch] = out
+                row["reference_of"] = ("the named policies" if batch ==
+                                       shape.batch else "no remat")
+            if label == "no_remat":
+                row["why_this_batch"] = (
+                    f"does not fit at B {shape.batch} on 80 GB; held "
+                    f"against full recompute at B {batch}")
+            rows.append(row)
+            del out
+    launches = dict(_build.launch_counts)
+    result = {"phase": "remat_sweep", "model": shape.model,
+              "frames": shape.frames, "seq_len": shape.seq,
+              "text_len": shape.text_len, "policies": rows,
+              "tol_loss_rel": TOL_LOSS_REL,
+              "tol_grad_rel": TOL_PARAM_GRAD_REL, "launches": launches,
+              "git_flash_shapes": {p: sorted(v)
+                                   for p, v in rec.shapes.items()}}
+    emit(result)
+    n_layers = shape.git.num_layers
+    updates = 1 + SWEEP_UPDATES
+    for r in rows:
+        check(np.isfinite(r["first_loss"]) and np.isfinite(r["ms"]),
+              f"remat sweep {r['policy']}: {r}")
+        check(all(r["launches"].get(k, 0) == n_layers * updates
+                  for k in ("git_flash_fwd",) + bwd_kernels())
+              and r["launches"].get(_build.HASH_DROPOUT, 0) > 0,
+              f"remat sweep {r['policy']}: K1/K2/K4 launches {r['launches']}")
+        if "loss_rel_err" in r:
+            check(r["loss_rel_err"] <= TOL_LOSS_REL
+                  and r["grad_rel_err_max"] <= TOL_PARAM_GRAD_REL,
+                  f"remat sweep {r['policy']}: against full recompute {r}")
+    del refs
+    torch.cuda.empty_cache()
+    return result, launches, rec.shapes
+
+
+def phase_profile_step():
+    """``profile_step``'s flagship probes (GIT-base, B=16, 8 frames,
+    S = 1608) through ``profile_step.run``, a few iterations each.  Also
+    returns the (B, H, num_img, L, Dh) of every K1 and K2 call, so that
+    each is held against its plain version."""
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    with GitFlashShapes() as rec:
+        rows = ps.run(ps.FLAGSHIP, tuple(ps.PROBES), PROFILE_STEP_ITERS,
+                      "cuda")
+    wall_s = time.perf_counter() - t0
+    launches = dict(_build.launch_counts)
+    row = {"phase": "profile_step", "shape": dataclasses.asdict(ps.FLAGSHIP),
+           "seq_len": ps.FLAGSHIP.seq, "iters": PROFILE_STEP_ITERS,
+           "wall_s": wall_s, "probes": rows, "launches": launches,
+           "git_flash_shapes": {p: sorted(v) for p, v in rec.shapes.items()}}
+    emit(row)
+    check([r["probe"] for r in rows] == list(ps.PROBES)
+          and all(np.isfinite(r["ms"]) and r["ms"] > 0 for r in rows),
+          f"profile_step: {rows}")
+    torch.cuda.empty_cache()
+    return row, launches, rec.shapes
+
+
+class MemoryStores:
+    """An in-memory writer (FrameStoreWriter's arguments and methods) that
+    keeps each store it writes, and the matching ``open_store``."""
+
+    def __init__(self):
+        self.rows = {}
+
+    def writer(self, path, num_videos, num_frames, img_hw):
+        w = MemoryStoreWriter(path, num_videos, num_frames, img_hw)
+        self.rows[path] = (w.rows, img_hw)
+        return w
+
+    def open_store(self, path):
+        rows, hw = self.rows[path]
+        n, k = rows.shape[:2]
+        return MemoryFrameStore(
+            rows.reshape(n, k, 3, hw, hw).transpose(0, 1, 3, 4, 2))
+
+
+def phase_quickstart():
+    """``quickstart --family git`` on the card, its synthetic store built
+    and read through the writer and store seams (no h5py there)."""
+    from sasvqa_torch.tools import quickstart as qs
+    stores = MemoryStores()
+    with tempfile.TemporaryDirectory() as root:
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        result = qs.main(["--family", "git", "--root", root],
+                         writer=stores.writer, open_store=stores.open_store)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = dict(_build.launch_counts)
+        with open(os.path.join(root, "out", "log", "scalars.jsonl")) as f:
+            tags = sorted({json.loads(line)["tag"] for line in f})
+        with open(os.path.join(root, "cfg.json")) as f:
+            platform = json.load(f)["platform"]
+    row = {"phase": "quickstart", "family": "git", "wall_s": wall_s,
+           "platform_in_config": platform,
+           "train_loss": result["train_loss"],
+           "global_step": result["global_step"], "val": result["val"],
+           "stores": sorted(os.path.basename(p) for p in stores.rows),
+           "scalar_tags": tags, "launches": launches}
+    emit(row)
+    check(np.isfinite(result["train_loss"]) and result["global_step"] > 0
+          and "train/loss" in tags and "overall_acc" in result["val"]
+          and platform is None,
+          f"quickstart: {row}")
+    return row, launches
+
+
 def predict_prompt_len():
     """The prompt length predict gives CLI['question'] ([CLS] and its
     tokens, within the default budget of 50 - 8)."""
@@ -2939,7 +3314,8 @@ def predict_prompt_len():
 PATHS = ("git_serve", "git_train", "blip_serve", "blip_train",
          "vitl16_grad_check", "task_loop", "clip_task_loop",
          "blip_task_loop", "mc_blip_task_loop", "mc_clip_task_loop",
-         "stage_a", "stage_b", "predict", "serve_cli")
+         "stage_a", "stage_b", "predict", "serve_cli", "retrieval",
+         "remat_sweep", "profile_step", "quickstart")
 KERNELS = ("git_flash_fwd", "git_flash_bwd", "git_flash_bwd_dq",
            "git_flash_bwd_dkv", _build.HASH_DROPOUT, "flash_fwd",
            "flash_bwd_dq", "flash_bwd_dkv")
@@ -2956,15 +3332,19 @@ def main() -> int:
     # GIT serving, a ragged 3-frame shape, predict's one video of 6 frames
     # with its prompt, the serve CLI's batch of 8 x 6 frames
     cli_img = CLI["nframe"] * tpf
-    kernel_rows = phase_kernel([(b, 12, fr * tpf, SLICE["max_txt_len"], 64),
-                                (2, 12, 3 * tpf, 13, 64),
-                                (1, 12, cli_img, predict_prompt_len(), 64),
-                                (CLI["batch_size"], 12, cli_img,
-                                 CLI["max_txt_len"], 64)])
+    kernel_shapes = [(b, 12, fr * tpf, SLICE["max_txt_len"], 64),
+                     (2, 12, 3 * tpf, 13, 64),
+                     (1, 12, cli_img, predict_prompt_len(), 64),
+                     (CLI["batch_size"], 12, cli_img, CLI["max_txt_len"], 64)]
+    kernel_rows = phase_kernel(kernel_shapes)
     rate = _git_config("git-base").attention_dropout
-    train_rows = phase_train_kernels(
-        [(TRAIN["batch_size"], 12, TRAIN["frames"] * tpf,
-          TRAIN["max_seq_len"], 64), (2, 12, 3 * tpf, 13, 64)], rate)
+    # the training shape, a ragged 3-frame one, and the remat sweep's
+    # vitl16 at B 4 (no remat and its full-recompute reference)
+    train_shapes = [(TRAIN["batch_size"], 12, TRAIN["frames"] * tpf,
+                     TRAIN["max_seq_len"], 64), (2, 12, 3 * tpf, 13, 64),
+                    (NO_REMAT_BATCH, 12, pc.VITL16.num_img,
+                     pc.VITL16.text_len, 64)]
+    train_rows = phase_train_kernels(train_shapes, rate)
     btok = 577
     flash_cases = {
         # BLIP-base vision self-attention: serving (64 frames) and
@@ -3002,6 +3382,7 @@ def main() -> int:
         blip_task_row, blip_task, blip_task_shapes = phase_blip_task_loop()
         mc_blip_row, mc_blip, mc_blip_shapes = phase_mc_blip_task_loop()
         mc_clip_row, mc_clip = phase_mc_clip_task_loop(ckpt)
+        _, retrieval = phase_retrieval(ckpt)
         del ckpt
     phase_loop_options()
     phase_git_load()
@@ -3011,6 +3392,9 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as cli_root:
         _, predict = phase_predict(cli_root, route, hw)
         _, serve_cli = phase_serve_cli(cli_root, route, hw)
+    _, remat_sweep, sweep_shapes = phase_remat_sweep()
+    _, profile_step, profile_shapes = phase_profile_step()
+    _, quickstart = phase_quickstart()
     # device-time windows taken, profiler steps taken again, lead records lost
     emit({"phase": "profiler", **PROFILER_STATS})
 
@@ -3018,7 +3402,9 @@ def main() -> int:
                                       (git_serve, git_train, blip_serve,
                                        blip_train, vitl16, task, clip_task,
                                        blip_task, mc_blip, mc_clip, stage_a,
-                                       stage_b, predict, serve_cli))))
+                                       stage_b, predict, serve_cli,
+                                       retrieval, remat_sweep, profile_step,
+                                       quickstart))))
                for name in KERNELS}
     needed = {"git_serve": ("git_flash_fwd",),
               "git_train": ("git_flash_fwd", _build.HASH_DROPOUT)
@@ -3042,7 +3428,15 @@ def main() -> int:
               # the scorer 64: below both flash routes
               "stage_a": (), "stage_b": (),
               "predict": ("git_flash_fwd",),
-              "serve_cli": ("git_flash_fwd",)}
+              "serve_cli": ("git_flash_fwd",),
+              # CLIP ViT-B/16 towers: 197 tokens a frame, 20 a caption
+              "retrieval": (),
+              "remat_sweep": ("git_flash_fwd", _build.HASH_DROPOUT)
+              + bwd_kernels(),
+              "profile_step": ("git_flash_fwd", _build.HASH_DROPOUT)
+              + bwd_kernels(),
+              # tiny-git at 2 frames of 32x32: S far below 512
+              "quickstart": ()}
     check(all(by_path[k][path] > 0 for path, ks in needed.items()
               for k in ks),
           f"a kernel of a path was not launched: {by_path}")
@@ -3054,6 +3448,19 @@ def main() -> int:
                          ("mc blip task loop", mc_blip_shapes)):
         check(all(shapes[p] <= held[p] for p in held),
               f"{name}: a K5/K6 shape was not held against its plain "
+              f"version: {shapes}, held {held}")
+    # every K1 and K2 shape of the remat sweep and profile_step was held
+    # against its plain version in the kernel phases (K1 alone at the
+    # serving shapes; K1 and K2 at the training shapes and, on their
+    # first rows, at SPLIT_SHAPES)
+    split_held = {(b, h, n, l, 64)
+                  for b, h, n, l, _ in SPLIT_SHAPES.values()}
+    held = {"fwd": set(kernel_shapes) | set(train_shapes) | split_held,
+            "bwd": set(train_shapes) | split_held}
+    for name, shapes in (("remat sweep", sweep_shapes),
+                         ("profile_step", profile_shapes)):
+        check(all(shapes[p] and shapes[p] <= held[p] for p in held),
+              f"{name}: a K1/K2 shape was not held against its plain "
               f"version: {shapes}, held {held}")
 
     serve, main_t = kernel_rows[0], train_rows[0]
@@ -3180,7 +3587,9 @@ def main() -> int:
         "replaces": "sasvqa_tpu/ops/git_flash.py:237 (_fwd_kernel)",
         **launches("git_flash_fwd"),
         "max_abs_err": max([r["max_abs_err_o"] for r in kernel_rows]
-                           + [t["fwd"]["max_abs_err_o"] for t in train_rows]),
+                           + [t["fwd"]["max_abs_err_o"] for t in train_rows]
+                           + [r["k1_max_abs_err_o_vs_plain"]
+                              for r in split_rows]),
         **timing(fwd["kernel_ms"], fwd["device_ms"], fwd["bound_ms"]),
         "plain_ms": fwd["plain_ms"],
         "bound_ms": fwd["bound_ms"], "bound_by": fwd["bound_by"],

@@ -7,6 +7,7 @@ distributed runtime.  :class:`DevicePrefetcher` stages the next batch
 into pinned host memory and copies it to the GPU on a side CUDA stream
 while the current step computes (the reference's CUDA-stream
 PrefetchLoader, src/datasets/dataloader.py:85-144).
+:class:`MetaLoader` interleaves several tasks' batch streams by ratio.
 """
 
 from __future__ import annotations
@@ -231,6 +232,37 @@ def stack_microbatches(it: Iterator[Dict[str, Any]], k: int,
                         f"accumulation window: {shapes}")
                 out[key] = np.stack(vals)
         yield out
+
+
+class MetaLoader:
+    """Ratio-weighted multi-task batch interleaver (reference:
+    src/datasets/dataloader.py:14-55, used by its pretrain path).  Yields
+    (task_name, batch) drawn from per-task infinite iterators with
+    probability proportional to the given ratios, deterministically from
+    a seeded ``np.random.Generator`` (the JAX package's draws)."""
+
+    def __init__(self, loaders, rng: np.random.Generator):
+        """loaders: {name: iterator} or {name: (iterator, ratio)}."""
+        if not loaders:
+            raise ValueError("MetaLoader needs at least one loader")
+        self.names: List[str] = []
+        self.iters: List[Any] = []
+        ratios: List[float] = []
+        for name, loader in loaders.items():
+            it, r = loader if isinstance(loader, tuple) else (loader, 1)
+            self.names.append(name)
+            self.iters.append(it)
+            ratios.append(float(r))
+        p = np.asarray(ratios, np.float64)
+        self._p = p / p.sum()
+        self._rng = rng
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        task = int(self._rng.choice(len(self.iters), p=self._p))
+        return self.names[task], next(self.iters[task])
 
 
 _SENTINEL = object()

@@ -13,11 +13,13 @@
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from functools import partial
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from sasvqa_torch.models.layers import (Dense, Embed, LayerNorm, PatchEmbed,
                                         PreLNBlock, init_params)
@@ -61,6 +63,58 @@ CLIP_VIT_B16 = (CLIPTextConfig(), CLIPVisionConfig(patch_size=16))
 CLIP_VIT_L14 = (CLIPTextConfig(hidden_size=768, intermediate_size=3072,
                                num_layers=12, num_heads=12),
                 CLIP_VIT_L14_VISION)
+
+
+_aten = torch.ops.aten
+_NO_BATCH_DOTS = (_aten.mm.default, _aten.addmm.default)
+_BATCH_DOTS = (_aten.bmm.default, _aten.baddbmm.default)
+# jax.checkpoint_policies names -> the ATen ops whose outputs the
+# backward keeps (None: every op's); the rest of a block is recomputed.
+# A Dense on a (N, L, D) input reaches mm/addmm, the attention products
+# bmm (torch.matmul of 4-D tensors), as JAX's dots without / with batch
+# dimensions
+REMAT_POLICIES: Dict[str, Optional[Tuple[Any, ...]]] = {
+    "nothing_saveable": (),
+    "dots_with_no_batch_dims_saveable": _NO_BATCH_DOTS,
+    "checkpoint_dots_with_no_batch_dims": _NO_BATCH_DOTS,
+    "dots_saveable": _NO_BATCH_DOTS + _BATCH_DOTS,
+    "checkpoint_dots": _NO_BATCH_DOTS + _BATCH_DOTS,
+    "everything_saveable": None,
+}
+# jax.checkpoint_policies entries that build a policy from arguments
+# (names of saved values, a second policy, an offload target)
+POLICY_FACTORIES = ("save_only_these_names", "save_any_names_but_these",
+                    "save_anything_except_these_names",
+                    "save_and_offload_only_these_names",
+                    "save_from_both_policies",
+                    "offload_dot_with_no_batch_dims")
+
+
+def remat_context_fn(policy: Optional[str]) -> Optional[Callable]:
+    """``context_fn`` for ``torch.utils.checkpoint`` that saves what the
+    named ``jax.checkpoint_policies`` policy saves (selective activation
+    checkpointing); None (full recompute) for no name.  A policy
+    factory's name raises ``NotImplementedError``, an unknown name
+    ``AttributeError``, as ``getattr(jax.checkpoint_policies, name)``."""
+    if not policy:
+        return None
+    if policy in POLICY_FACTORIES:
+        raise NotImplementedError(
+            f"remat_policy {policy!r} is a policy factory (it takes "
+            f"arguments); the port takes the named policies "
+            f"{sorted(REMAT_POLICIES)}")
+    if policy not in REMAT_POLICIES:
+        raise AttributeError(
+            f"unknown remat_policy {policy!r}; known: "
+            f"{sorted(REMAT_POLICIES)}")
+    saved = REMAT_POLICIES[policy]
+
+    def policy_fn(ctx, op, *args, **kwargs):
+        keep = saved is None or op in saved
+        return (CheckpointPolicy.MUST_SAVE if keep
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+
+    return partial(create_selective_checkpoint_contexts, policy_fn)
 
 
 class CLIPTextEncoder(nn.Module):
@@ -130,10 +184,10 @@ class CLIPVisionEncoder(nn.Module):
     the CLS.  ``with_projection`` adds the bias-free visual projection.
     ``remat`` recomputes each block in the backward instead of keeping
     its activations (``torch.utils.checkpoint``, full recompute as
-    ``nn.remat`` without a policy); a named ``remat_policy`` (a
-    ``jax.checkpoint_policies`` name in the JAX package) is not ported and
-    raises.  Weights are drawn from ``generator`` (default: seeded with
-    0)."""
+    ``nn.remat`` without a policy); ``remat_policy`` names a
+    ``jax.checkpoint_policies`` policy whose saved values the backward
+    keeps (:data:`REMAT_POLICIES`).  Weights are drawn from ``generator``
+    (default: seeded with 0)."""
 
     def __init__(self, config: CLIPVisionConfig,
                  dtype: torch.dtype = torch.float32,
@@ -142,12 +196,13 @@ class CLIPVisionEncoder(nn.Module):
                  generator: Optional[torch.Generator] = None,
                  remat: bool = False, remat_policy: Optional[str] = None):
         super().__init__()
-        if remat_policy:
-            raise NotImplementedError(
-                f"remat_policy {remat_policy!r} is not ported (full "
-                f"recompute only; ROADMAP.md lists the policies)")
         c = config
         self.remat = remat
+        self.remat_policy = remat_policy or None
+        # as in the JAX package, the policy is read only under remat
+        context_fn = remat_context_fn(remat_policy) if remat else None
+        self._remat_kwargs = ({} if context_fn is None
+                              else {"context_fn": context_fn})
         self.config = c
         self.dtype = dtype
         self.post_ln_all_tokens = post_ln_all_tokens
@@ -183,7 +238,8 @@ class CLIPVisionEncoder(nn.Module):
         for i in range(self.num_layers):
             block = getattr(self, f"layers_{i}")
             if self.remat and torch.is_grad_enabled():
-                x = checkpoint(block, x, use_reentrant=False)
+                x = checkpoint(block, x, use_reentrant=False,
+                               **self._remat_kwargs)
             else:
                 x = block(x)
         if self.post_ln_all_tokens:

@@ -595,7 +595,10 @@ def _train_loop(cfg, state, train_step, train_ds, collator, host_rng,
             "train_loss": running_loss.val, "global_step": global_step}
 
 
-def main(argv: Optional[List[str]] = None):
+def main(argv: Optional[List[str]] = None, *,
+         open_store: Callable[[str], Any] = FrameStoreReader):
+    """The command line: ``get_video_qa_args(argv)``, then
+    :func:`start_training` with ``open_store``."""
     cfg = get_video_qa_args(argv)
     if cfg.do_inference:
         # a standalone validation pass: zero train steps fall straight
@@ -603,7 +606,7 @@ def main(argv: Optional[List[str]] = None):
         LOGGER.info("inference-only mode")
         cfg.num_train_epochs = 0
         cfg.zero_eval = False
-    return start_training(cfg)
+    return start_training(cfg, open_store=open_store)
 
 
 if __name__ == "__main__":

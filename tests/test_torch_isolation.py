@@ -143,6 +143,30 @@ def test_entry_points_default_to_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         start_training(ConfigDict({"platform": None}))
 
+    # retrieval, quickstart and the profile tools: the GPU unless asked
+    import json
+    import tempfile
+
+    from sasvqa_torch.tasks import run_retrieval
+    from sasvqa_torch.tools import profile_config, profile_step, quickstart
+    with tempfile.TemporaryDirectory() as root:
+        path = os.path.join(root, "cfg.json")
+        with open(path, "w") as f:
+            json.dump({"task": "msvd_qa",
+                       "model": {"pretrained_model": "tiny-clip"}}, f)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            run_retrieval.main(["--config", path])
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            run_retrieval.build_towers({"model": {
+                "pretrained_model": "tiny-clip"}})
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            quickstart.main(["--family", "git", "--root", root])
+    for tool in (profile_step, profile_config):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            tool.main([])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        profile_step.run(profile_step.FLAGSHIP, ("mm_768",))
+
 
 def test_cpu_model_never_counts_a_kernel_launch():
     """The whole tiny model on CPU tensors, forced onto the git-flash

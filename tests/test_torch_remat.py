@@ -1,8 +1,9 @@
 """Vision-tower remat and the GIT presets of the port vs the JAX package,
 in f32 on the CPU: a tiny patch-14 tower and a tiny GIT with remat give
 the outputs and gradients of the same models without remat and of the
-JAX remat models; build_model honours the dropout and remat keys as the
-JAX build_model does."""
+JAX remat models, under full recompute and under every named policy;
+the policies recompute fewer matmuls in that order; build_model honours
+the dropout and remat keys as the JAX build_model does."""
 
 import dataclasses
 
@@ -12,6 +13,7 @@ import pytest
 import jax
 import jax.numpy as jnp
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from sasvqa_tpu.core.config import ConfigDict
 from sasvqa_tpu.models import clip as jclip
@@ -136,16 +138,176 @@ def test_git_remat_loss_and_grads_match_no_remat_and_jax():
                                    atol=ATOL, rtol=RTOL, err_msg=name)
 
 
+# every jax.checkpoint_policies name the port accepts (None: full
+# recompute), the aliases included
+POLICIES = [None, "nothing_saveable", "dots_with_no_batch_dims_saveable",
+            "checkpoint_dots_with_no_batch_dims", "dots_saveable",
+            "checkpoint_dots", "everything_saveable"]
+
+
+_POLICY_PIXELS = _pixels(seed=4)
+# per test module: the tower's params, the port's no-remat outputs, and
+# the JAX outputs and gradients of each distinct policy (an alias is the
+# same jax.checkpoint_policies function as its name)
+_POLICY_CACHE = {}
+
+
+def _policy_params():
+    if "params" not in _POLICY_CACHE:
+        jm = jclip.CLIPVisionEncoder(TINY_L14, post_ln_all_tokens=True,
+                                     with_projection=False, remat=True)
+        _POLICY_CACHE["params"] = jax.jit(jm.init)(
+            jax.random.key(3), jnp.asarray(_POLICY_PIXELS))
+    return _POLICY_CACHE["params"]
+
+
+def _port_policy_outs(remat, policy):
+    model = tclip.CLIPVisionEncoder(
+        tclip.CLIPVisionConfig(**dataclasses.asdict(TINY_L14)),
+        post_ln_all_tokens=True, with_projection=False, remat=remat,
+        remat_policy=policy)
+    return _tower_out_and_grads(
+        load_flax_params(model, _policy_params()).train(), _POLICY_PIXELS)
+
+
+def _jax_policy_outs(policy):
+    key = None if policy is None else getattr(jax.checkpoint_policies,
+                                              policy)
+    if key not in _POLICY_CACHE:
+        jm = jclip.CLIPVisionEncoder(TINY_L14, post_ln_all_tokens=True,
+                                     with_projection=False, remat=True,
+                                     remat_policy=policy)
+
+        def jloss(p, x):
+            hidden, _, _ = jm.apply(p, x)
+            return (hidden ** 2).mean(), hidden
+
+        (_, jhidden), (jgrads, jdx) = jax.jit(jax.value_and_grad(
+            jloss, argnums=(0, 1), has_aux=True))(
+            _policy_params(), jnp.asarray(_POLICY_PIXELS))
+        _POLICY_CACHE[key] = (np.asarray(jhidden), np.asarray(jdx),
+                              state_dict_from_flax(numpy_tree(jgrads)))
+    return _POLICY_CACHE[key]
+
+
+@pytest.mark.parametrize("policy", POLICIES)
+def test_named_remat_policy_matches_no_remat_and_jax(policy):
+    """A tower under each named policy: hidden states and every gradient
+    within 1e-6 of the port without remat and within 1e-5 of jax.grad of
+    nn.remat(policy=...) (f32 on the CPU)."""
+    jhidden, jdx, ref = _jax_policy_outs(policy)
+    if "no_remat" not in _POLICY_CACHE:
+        _POLICY_CACHE["no_remat"] = _port_policy_outs(False, None)
+    h_r, dx_r, g_r = _port_policy_outs(True, policy)
+    h_n, dx_n, g_n = _POLICY_CACHE["no_remat"]
+    np.testing.assert_allclose(h_r, h_n, atol=1e-6, rtol=0)
+    np.testing.assert_allclose(dx_r, dx_n, atol=1e-6, rtol=0)
+    for name in g_n:
+        np.testing.assert_allclose(g_r[name], g_n[name], atol=1e-6, rtol=0,
+                                   err_msg=name)
+    np.testing.assert_allclose(h_r, jhidden, atol=1e-5, rtol=0)
+    np.testing.assert_allclose(dx_r, jdx, atol=1e-5, rtol=0)
+    assert set(g_r) == set(ref)
+    for name, val in ref.items():
+        np.testing.assert_allclose(g_r[name], val.numpy(), atol=1e-5,
+                                   rtol=0, err_msg=name)
+
+
+_MATMULS = {torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+            torch.ops.aten.bmm.default, torch.ops.aten.baddbmm.default}
+
+
+class _MatmulCount(TorchDispatchMode):
+    """Counts the matmul kernels that run while it is active.  Entered
+    before the backward, it sits under the checkpoint's recompute mode,
+    so an output served from the selective-checkpoint cache is not
+    counted: only matmuls that execute are."""
+
+    def __init__(self):
+        super().__init__()
+        self.n = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.n += func in _MATMULS
+        return func(*args, **(kwargs or {}))
+
+
+def _backward_matmuls(remat, policy):
+    model = tclip.CLIPVisionEncoder(
+        tclip.CLIPVisionConfig(**dataclasses.asdict(TINY_L14)),
+        post_ln_all_tokens=True, with_projection=False, remat=remat,
+        remat_policy=policy).train()
+    hidden, _, _ = model(to_torch(_pixels()))
+    loss = (hidden ** 2).mean()
+    with _MatmulCount() as count:
+        loss.backward()
+    return count.n
+
+
+def test_remat_policies_recompute_fewer_matmuls():
+    """Matmuls re-executed in the backward (the backward's count minus
+    that without remat): full recompute > dots without batch dims (the
+    attention products recomputed) > all dots (none) >= everything, so no
+    policy is a silent full recompute; an alias recomputes what its name
+    does."""
+    base = _backward_matmuls(False, None)
+    again = {p: _backward_matmuls(True, p) - base for p in POLICIES}
+    assert again[None] == again["nothing_saveable"]
+    assert again[None] > again["dots_with_no_batch_dims_saveable"] \
+        > again["dots_saveable"] >= again["everything_saveable"] >= 0, again
+    assert again["checkpoint_dots_with_no_batch_dims"] == \
+        again["dots_with_no_batch_dims_saveable"]
+    assert again["checkpoint_dots"] == again["dots_saveable"]
+    # the vision attention's two products in each of the 2 layers
+    assert again["dots_with_no_batch_dims_saveable"] == 4, again
+
+
 def test_named_remat_policy_raises():
-    with pytest.raises(NotImplementedError, match="dots_saveable"):
+    """A jax.checkpoint_policies factory (it takes arguments) raises, in
+    the tower and through build_model."""
+    with pytest.raises(NotImplementedError, match="save_only_these_names"):
         tclip.CLIPVisionEncoder(
             tclip.CLIPVisionConfig(**dataclasses.asdict(TINY_L14)),
-            remat=True, remat_policy="dots_saveable")
+            remat=True, remat_policy="save_only_these_names")
     cfg = {"model": {"pretrained_model": "tiny-git",
-                     "remat_policy": "dots_with_no_batch_dims_saveable"},
+                     "remat_policy": "save_from_both_policies"},
            "remat": True}
     with pytest.raises(NotImplementedError, match="remat_policy"):
         tpresets.build_model(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("name,error", [
+    (n, NotImplementedError) for n in tclip.POLICY_FACTORIES] + [
+    ("not_a_policy", AttributeError), ("dots", AttributeError)])
+def test_factory_and_unknown_policies_raise(name, error):
+    """Every JAX policy factory raises NotImplementedError naming it; an
+    unknown name raises AttributeError, as getattr on
+    jax.checkpoint_policies does; without remat the name is not read."""
+    assert hasattr(jax.checkpoint_policies, name) == (
+        error is NotImplementedError)
+    vcfg = tclip.CLIPVisionConfig(**dataclasses.asdict(TINY_L14))
+    with pytest.raises(error, match=name):
+        tclip.CLIPVisionEncoder(vcfg, remat=True, remat_policy=name)
+    tclip.CLIPVisionEncoder(vcfg, remat=False, remat_policy=name)
+
+
+def test_every_jax_policy_name_is_handled():
+    """Each name of jax.checkpoint_policies is a named policy or a
+    factory of the port."""
+    names = {n for n in dir(jax.checkpoint_policies) if not n.startswith("_")}
+    assert names == set(tclip.REMAT_POLICIES) | set(tclip.POLICY_FACTORIES)
+
+
+@pytest.mark.parametrize("policy", ["dots_saveable", "", None])
+def test_build_model_propagates_remat_policy(policy):
+    """build_model hands the config's policy to the tower as the JAX
+    build_model does (an empty name normalises to full recompute)."""
+    cfg = {"model": {"pretrained_model": "tiny-git", "vocab_size": 64,
+                     "remat": True, "remat_policy": policy}}
+    _, jm = jpresets.build_model(ConfigDict(cfg))
+    _, tm = tpresets.build_model(cfg, device="cpu")
+    assert tm.image_encoder.remat is jm.remat is True
+    assert tm.image_encoder.remat_policy == jm.remat_policy
 
 
 PRESET_CONFIGS = [

@@ -538,7 +538,8 @@ def test_platform_unset_needs_a_gpu(synth, tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("override,match", [
     ({"mesh_shape": [2]}, "more than one device"),
-    ({"remat": True, "remat_policy": "dots_saveable"}, "remat_policy"),
+    ({"remat": True, "remat_policy": "save_only_these_names"},
+     "remat_policy"),
 ])
 def test_unported_branches_raise(synth, tmp_path, override, match):
     cfg = dict(_cfg(synth, tmp_path / "out"), **override)
