@@ -66,7 +66,15 @@ its kernels:
   recompute's), ``profile_step``'s flagship probes, and ``quickstart
   --family git`` through its store seams; every K1 and K2 shape of the
   sweep and of the probes was held against the plain versions above
-  (the sweep's B 4 among the training shapes).
+  (the sweep's B 4 among the training shapes);
+- multi-process training on one card (``dist_task_loop``):
+  ``start_training`` on configs/msvd_qa_base.json (GIT-base, 8 frames,
+  S = 1608, dropout on, 3 updates of 2 micros of 8, one validation)
+  without a process group, then under a real 1-rank NCCL group on the
+  data route (gradient all-reduce) and on the FSDP2 route (``data
+  fsdp`` [1, 1]): each update's loss held to the run without a group,
+  the FSDP run's snapshot loaded into a fresh model, ms an update, peak
+  memory and the NCCL kernels' device time of each run.
 
 Every kernel row carries the kernel's device time from ``torch.profiler``
 beside CUDA events round its Python call (the backward rows: every
@@ -81,6 +89,7 @@ with no result, when there is no GPU or any check fails.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import hashlib
 import json
@@ -1726,14 +1735,19 @@ def _memory_store(task):
         dtype=np.float32))
 
 
-def _timed_start_training(cfg, root, store, wrap_loader=None):
+def _timed_start_training(cfg, root, store, wrap_loader=None,
+                          profile_call=None):
     """``start_training`` through its normal entry (``cfg`` written to a
     file under ``root`` and parsed by get_video_qa_args), frames from
     ``store``; the step, the prefetcher and validate are wrapped to time
     them (and the weight loader by ``wrap_loader``); nothing else in the
-    loop changes.  Returns the result, the timings, the launch counts of
-    the run, its train/loss entries, snapshots and peak memory."""
+    loop changes.  The step call numbered ``profile_call`` (from 1) runs
+    under ``torch.profiler`` (CPU and CUDA), summed by
+    :func:`_collectives`.  Returns the result, the timings, the launch
+    counts of the run, its train/loss entries, snapshots and peak
+    memory."""
     step_s, wait_s, val_s, staged = [], [], [], []
+    profiled = []
     real_steps = {name: getattr(train_steps, name) for name in STEP_FACTORIES}
     real_validate = run_video_qa.validate
     real_prefetcher = run_video_qa.DevicePrefetcher
@@ -1744,6 +1758,16 @@ def _timed_start_training(cfg, root, store, wrap_loader=None):
             step = real(*a, **kw)
 
             def run(state, batch, seed):
+                if len(step_s) + 1 == profile_call:
+                    prof = torch.profiler.profile(activities=[
+                        torch.profiler.ProfilerActivity.CPU,
+                        torch.profiler.ProfilerActivity.CUDA])
+                    with prof:
+                        out = step(state, batch, seed)
+                        torch.cuda.synchronize()
+                    profiled.append(_collectives(prof))
+                    step_s.append(float("nan"))
+                    return out
                 t0 = time.perf_counter()
                 out = step(state, batch, seed)
                 torch.cuda.synchronize()
@@ -1814,6 +1838,7 @@ def _timed_start_training(cfg, root, store, wrap_loader=None):
                           mmap=True) if restore_files else None
     return {"result": result, "launches": launches, "wall_s": wall,
             "step_s": step_s, "wait_s": wait_s, "val_s": val_s,
+            "profile": profiled[0] if profiled else None,
             "staged": staged, "pixel_staging": pixel_dtype_for(args),
             "restored": None if restored is None else {
                 "optimizer": restored["layout"]["optimizer"],
@@ -3311,11 +3336,171 @@ def predict_prompt_len():
     return min(n, 42)
 
 
+# multi-process training on one card: GIT-base on configs/msvd_qa_base.json
+# at nframe 8 over 64 stored frames ('uniform' takes every 8th: 8 frames,
+# S = 8 * 197 + 32 = 1608, so the loop takes K1, K2 and K4), 24 videos of
+# 2 questions, train_batch_size 8 and 2 accumulated micros (3 updates in
+# one epoch), then one validation of 8 val and 8 test questions at
+# val_batch_size 8; run without a process group, then in a 1-rank NCCL
+# group on each mesh below; the last update of each run is profiled
+DIST_TASK = dict(videos=24, questions=2, stored_frames=64, img=224, val=8,
+                 test=8, overrides={
+                     "nframe": 8, "samp_policy": "uniform",
+                     "max_seq_len": 32, "max_txt_len": 20,
+                     "max_n_example_per_group": 1, "train_batch_size": 8,
+                     "gradient_accumulation_steps": 2, "val_batch_size": 8,
+                     "num_train_epochs": 1, "num_valid": 1,
+                     "min_valid_steps": 100, "learning_rate": 2e-4,
+                     "gen_max_new_tokens": 10, "seed": 0})
+DIST_MESHES = {"no_group": {}, "data": {"mesh_axes": ["data"]},
+               "fsdp": {"mesh_shape": [1, 1],
+                        "mesh_axes": ["data", "fsdp"]}}
+DIST_UPDATES = 3
+
+
+def _collectives(prof):
+    """A profiled update's device ms: all of it (the device's records),
+    the device work under the process group's ops (``nccl:*`` ranges:
+    kernels and copies) and the NCCL kernels themselves, with the
+    collectives by name."""
+    rows = prof.key_averages()
+    device = [e for e in rows
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    ops = {e.key: {"calls": e.count, "device_ms": e.device_time_total / 1e3}
+           for e in rows if e.key.startswith("nccl:")}
+    kernels = [e for e in device if e.key.startswith("nccl")]
+    return {"device_ms": sum(e.self_device_time_total for e in device) / 1e3,
+            "collective_device_ms": sum(o["device_ms"]
+                                        for o in ops.values()),
+            "nccl_kernel_ms": sum(e.self_device_time_total
+                                  for e in kernels) / 1e3,
+            "nccl_kernels": sum(e.count for e in kernels),
+            "collectives": ops}
+
+
+def phase_dist_task_loop():
+    """``start_training`` on configs/msvd_qa_base.json (GIT-base at full
+    width, seeded weights, dropout on) without a process group, then in a
+    real 1-rank NCCL group on the data route and on the FSDP2 route: each
+    update's loss within TOL_LOSS_REL of the run without a group, the
+    same global step, finite scores, the FSDP run's snapshot the same
+    keys and shapes as the first run's and loaded into a fresh model.
+    The counts of K1/K2/K4 are summed over the three runs.  Also returns
+    the (B, H, num_img, L, Dh) of every K1 and K2 call."""
+    import socket
+    import torch.distributed as dist
+
+    from sasvqa_torch.parallel import mesh as pmesh
+    t_setup = time.perf_counter()
+    store = _memory_store(DIST_TASK)
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "configs", "msvd_qa_base.json")) as f:
+        base = json.load(f)
+    base["model"].pop("pretrained_weights")
+    base.pop("tokenizer_dir")
+    setup_s = time.perf_counter() - t_setup
+    runs, launches = {}, {k: 0 for k in KERNELS}
+    env = {}
+    with tempfile.TemporaryDirectory() as root, GitFlashShapes() as rec, \
+            contextlib.ExitStack() as group:
+        for name, mesh in DIST_MESHES.items():
+            if name != "no_group" and not pmesh.is_distributed():
+                with socket.socket() as s:
+                    s.bind(("localhost", 0))
+                    port = s.getsockname()[1]
+                env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+                       "MASTER_ADDR": "localhost", "MASTER_PORT": str(port)}
+                os.environ.update(env)
+                group.callback(lambda: [os.environ.pop(k, None)
+                                        for k in env])
+                check(pmesh.init_distributed(None)
+                      and dist.get_backend() == "nccl",
+                      "dist task loop: no NCCL process group")
+                group.callback(dist.destroy_process_group)
+            run_root = os.path.join(root, name)
+            os.makedirs(run_root)
+            cfg = dict(base, **DIST_TASK["overrides"], **mesh,
+                       output_dir=os.path.join(run_root, "out"),
+                       **_task_files(run_root, DIST_TASK))
+            cfg["model"] = dict(base["model"])
+            run = _timed_start_training(cfg, run_root, store,
+                                        profile_call=DIST_UPDATES)
+            snap = torch.load(os.path.join(
+                cfg["output_dir"], "ckpt", f"model_step_{DIST_UPDATES}.pt"),
+                map_location="cpu", weights_only=True)
+            runs[name] = {
+                "mesh": mesh, "route": {"no_group": None, "data": "data",
+                                        "fsdp": "fsdp"}[name],
+                "backend": dist.get_backend() if pmesh.is_distributed()
+                else None,
+                "updates": run["result"]["global_step"],
+                "losses": run["losses"], "wall_s": run["wall_s"],
+                "update_s": run["step_s"],
+                # the first update warms up, the last is profiled
+                "ms_per_update": run["step_s"][1] * 1e3,
+                "validation_s": run["val_s"],
+                "max_memory_allocated_gb": run["max_memory_allocated_gb"],
+                "profiled_update": run["profile"],
+                "val": run["result"]["val"], "test": run["result"]["test"],
+                "launches": run["launches"],
+                "snapshot": {k: list(v.shape) for k, v in snap.items()}}
+            for k in KERNELS:
+                launches[k] += run["launches"].get(k, 0)
+            if name == "fsdp":
+                fsdp_snap = snap
+            del snap
+            torch.cuda.empty_cache()
+    anchor = runs["no_group"]
+    fresh = _git_base(0)
+    fresh.load_state_dict(fsdp_snap, strict=True)
+    del fresh, fsdp_snap
+    want = anchor["snapshot"]
+    for r in runs.values():    # keys and shapes: compared, not printed
+        got = r.pop("snapshot")
+        r["snapshot_leaves"] = len(got)
+        r["snapshot_same_as_no_group"] = got == want
+    s_len = DIST_TASK["overrides"]["nframe"] * 197 + \
+        DIST_TASK["overrides"]["max_seq_len"]
+    row = {"phase": "dist_task_loop",
+           "model": "git-base video QA, seeded random weights, dropout on",
+           "config": "configs/msvd_qa_base.json + " + json.dumps(
+               DIST_TASK["overrides"]),
+           "seq_len": s_len, "setup_s": setup_s,
+           "tol_loss_rel": TOL_LOSS_REL, "runs": runs,
+           "loss_rel_err": {
+               name: max(abs(a - b) / abs(b) for a, b in
+                         zip(r["losses"], anchor["losses"]))
+               for name, r in runs.items() if name != "no_group"},
+           "launches": launches,
+           "git_flash_shapes": {p: sorted(v) for p, v in rec.shapes.items()}}
+    emit(row)
+    for name, r in runs.items():
+        check(r["updates"] == DIST_UPDATES
+              and len(r["losses"]) == DIST_UPDATES
+              and all(np.isfinite(r["losses"])),
+              f"dist task loop {name}: not {DIST_UPDATES} finite losses: "
+              f"{r['losses']}")
+        check(all(np.isfinite(r[s]["overall_acc"]) for s in ("val", "test")),
+              f"dist task loop {name}: scores {r['val']} {r['test']}")
+        check(r["snapshot_same_as_no_group"],
+              f"dist task loop {name}: snapshot keys or shapes differ")
+        if name != "no_group":
+            check(r["backend"] == "nccl"
+                  and row["loss_rel_err"][name] <= TOL_LOSS_REL,
+                  f"dist task loop {name}: losses {r['losses']} against "
+                  f"{anchor['losses']}")
+    check(all(launches[k] > 0 for k in
+              ("git_flash_fwd", _build.HASH_DROPOUT) + bwd_kernels()),
+          f"dist task loop: a kernel of its route was not launched: "
+          f"{launches}")
+    return row, launches, rec.shapes
+
+
 PATHS = ("git_serve", "git_train", "blip_serve", "blip_train",
          "vitl16_grad_check", "task_loop", "clip_task_loop",
          "blip_task_loop", "mc_blip_task_loop", "mc_clip_task_loop",
          "stage_a", "stage_b", "predict", "serve_cli", "retrieval",
-         "remat_sweep", "profile_step", "quickstart")
+         "remat_sweep", "profile_step", "quickstart", "dist_task_loop")
 KERNELS = ("git_flash_fwd", "git_flash_bwd", "git_flash_bwd_dq",
            "git_flash_bwd_dkv", _build.HASH_DROPOUT, "flash_fwd",
            "flash_bwd_dq", "flash_bwd_dkv")
@@ -3340,10 +3525,13 @@ def main() -> int:
     rate = _git_config("git-base").attention_dropout
     # the training shape, a ragged 3-frame one, and the remat sweep's
     # vitl16 at B 4 (no remat and its full-recompute reference)
+    dist = DIST_TASK["overrides"]
     train_shapes = [(TRAIN["batch_size"], 12, TRAIN["frames"] * tpf,
                      TRAIN["max_seq_len"], 64), (2, 12, 3 * tpf, 13, 64),
                     (NO_REMAT_BATCH, 12, pc.VITL16.num_img,
-                     pc.VITL16.text_len, 64)]
+                     pc.VITL16.text_len, 64),
+                    (dist["train_batch_size"], 12, dist["nframe"] * tpf,
+                     dist["max_seq_len"], 64)]
     train_rows = phase_train_kernels(train_shapes, rate)
     btok = 577
     flash_cases = {
@@ -3395,6 +3583,8 @@ def main() -> int:
     _, remat_sweep, sweep_shapes = phase_remat_sweep()
     _, profile_step, profile_shapes = phase_profile_step()
     _, quickstart = phase_quickstart()
+    # last: the only phase under a process group
+    _, dist_task, dist_shapes = phase_dist_task_loop()
     # device-time windows taken, profiler steps taken again, lead records lost
     emit({"phase": "profiler", **PROFILER_STATS})
 
@@ -3404,7 +3594,7 @@ def main() -> int:
                                        blip_task, mc_blip, mc_clip, stage_a,
                                        stage_b, predict, serve_cli,
                                        retrieval, remat_sweep, profile_step,
-                                       quickstart))))
+                                       quickstart, dist_task))))
                for name in KERNELS}
     needed = {"git_serve": ("git_flash_fwd",),
               "git_train": ("git_flash_fwd", _build.HASH_DROPOUT)
@@ -3436,7 +3626,9 @@ def main() -> int:
               "profile_step": ("git_flash_fwd", _build.HASH_DROPOUT)
               + bwd_kernels(),
               # tiny-git at 2 frames of 32x32: S far below 512
-              "quickstart": ()}
+              "quickstart": (),
+              "dist_task_loop": ("git_flash_fwd", _build.HASH_DROPOUT)
+              + bwd_kernels()}
     check(all(by_path[k][path] > 0 for path, ks in needed.items()
               for k in ks),
           f"a kernel of a path was not launched: {by_path}")
@@ -3458,7 +3650,8 @@ def main() -> int:
     held = {"fwd": set(kernel_shapes) | set(train_shapes) | split_held,
             "bwd": set(train_shapes) | split_held}
     for name, shapes in (("remat sweep", sweep_shapes),
-                         ("profile_step", profile_shapes)):
+                         ("profile_step", profile_shapes),
+                         ("dist task loop", dist_shapes)):
         check(all(shapes[p] and shapes[p] <= held[p] for p in held),
               f"{name}: a K1/K2 shape was not held against its plain "
               f"version: {shapes}, held {held}")

@@ -18,6 +18,12 @@ name.  Saves are synchronous; ``wait()`` exists for the loop's calls.
 Also captures run metadata (args.json + source zip,
 :func:`save_training_meta`).  Files hold tensors and plain containers
 only and are read back with ``torch.load(weights_only=True)``.
+
+Under a process group saves and restores are collective: every rank
+gathers the whole tensors of sharded parameters and moments, rank 0
+alone writes the same files one process writes, and every rank waits at
+a barrier; on restore every rank reads the whole state and keeps its
+shards.  So a snapshot resumes at any rank count.
 """
 
 from __future__ import annotations
@@ -29,12 +35,9 @@ from typing import Any, Dict, List, Mapping, Optional
 import torch
 
 from sasvqa_torch.core.logging import LOGGER
+from sasvqa_torch.parallel.mesh import (barrier, fetch_params_for_save,
+                                        load_full_state_dict, rank)
 from sasvqa_torch.utils.basic import ensure_dir, save_json, zip_source_tree
-
-
-def _cpu_state(state_dict: Mapping[str, torch.Tensor]
-               ) -> Dict[str, torch.Tensor]:
-    return {k: v.detach().to("cpu", copy=True) for k, v in state_dict.items()}
 
 
 def _atomic_save(obj: Any, path: str) -> None:
@@ -66,9 +69,12 @@ class _StepFiles:
         return steps[-1] if steps else None
 
     def save(self, step: int, obj: Any) -> None:
-        _atomic_save(obj, self.path(step))
-        for old in self.all_steps()[:-self.max_to_keep]:
-            os.remove(self.path(old))
+        """Rank 0 writes; every rank returns once the file is in place."""
+        if rank() == 0:
+            _atomic_save(obj, self.path(step))
+            for old in self.all_steps()[:-self.max_to_keep]:
+                os.remove(self.path(old))
+        barrier()
 
     def load(self, step: int) -> Any:
         return torch.load(self.path(step), map_location="cpu",
@@ -83,8 +89,8 @@ class ModelSaver:
         self.dir = self._files.dir
 
     def save(self, step: int, params: Mapping[str, torch.Tensor]) -> None:
-        """``params``: a module's ``state_dict()``."""
-        self._files.save(step, _cpu_state(params))
+        """``params``: a module's ``state_dict()`` (every rank calls it)."""
+        self._files.save(step, fetch_params_for_save(params))
 
     def restore(self, step: int) -> Dict[str, torch.Tensor]:
         """The state dict saved at ``step`` (on the CPU)."""
@@ -154,7 +160,7 @@ class TrainingRestorer:
     def _save(self, step: int, state) -> None:
         self._files.save(step, {
             "layout": _layout(state),
-            "params": _cpu_state(state.model.state_dict()),
+            "params": fetch_params_for_save(state.model.state_dict()),
             "opt_state": state.optimizer.state_dict(),
             "step": int(state.step)})
 
@@ -191,7 +197,7 @@ class TrainingRestorer:
                 f"another state layout than this run ({what} changed); "
                 f"restart from an eval snapshot (params only) instead")
         LOGGER.info(f"auto-resuming from restore checkpoint step {latest}")
-        state.model.load_state_dict(saved["params"], strict=True)
+        load_full_state_dict(state.model, saved["params"])
         state.optimizer.load_state_dict(saved["opt_state"])
         state.step = int(saved["step"])
         return state

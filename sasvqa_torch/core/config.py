@@ -228,14 +228,19 @@ def build_shared_parser(desc: str = "sasvqa_torch shared config") -> argparse.Ar
     # data/pipeline.CollatorPool)
     p.add_argument("--n_workers", type=int, default=0)
     p.add_argument("--pin_mem", type=int, choices=[0, 1], default=1)
-    # device / mesh (mesh_shape/mesh_axes: multi-device, not ported)
+    # device / mesh: one process a device, launched by torchrun
     p.add_argument("--platform", type=str, default=None,
-                   help="'cpu' runs on the CPU; default: the GPU")
+                   help="'cpu' runs on the CPU (gloo between processes); "
+                        "default: the GPU (NCCL)")
     p.add_argument("--mesh_shape", type=int, nargs="+", default=None,
                    help="device mesh shape, e.g. --mesh_shape 8 for dp=8; "
-                        "default: all devices on one data axis")
+                        "its size is the number of processes (torchrun "
+                        "--nproc_per_node); default: every process on one "
+                        "data axis")
     p.add_argument("--mesh_axes", type=str, nargs="+", default=None,
-                   help="mesh axis names matching --mesh_shape (default: ['data'])")
+                   help="mesh axis names matching --mesh_shape, from data "
+                        "(gradient all-reduce), fsdp (FSDP2) and model "
+                        "(tensor parallelism); default: ['data']")
     # config file overlay
     p.add_argument("--config", help="JSON config file")
     return p
@@ -255,6 +260,16 @@ def finalize_config(args: ConfigDict) -> ConfigDict:
     if args.get("score_agg_func") == "lse" and args.get("loss_type") is not None:
         assert args.loss_type == "ce", (
             f"lse aggregation requires ce loss, not {args.loss_type}")
+    shape, axes = args.get("mesh_shape"), args.get("mesh_axes")
+    if axes is not None:
+        if len(set(axes)) != len(axes) or \
+                not set(axes) <= {"data", "fsdp", "model"}:
+            raise ValueError(f"mesh_axes {list(axes)}: each of data, fsdp "
+                             f"and model at most once")
+    if shape is not None and len(shape) != len(axes or ["data"]):
+        raise ValueError(f"mesh_shape {list(shape)} has {len(shape)} dims "
+                         f"but mesh_axes {list(axes or ['data'])} name "
+                         f"{len(axes or ['data'])}")
     return args
 
 

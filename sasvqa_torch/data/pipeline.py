@@ -1,9 +1,11 @@
 """Host input pipeline: batching, shuffling, micro-batch stacking and the
 device prefetcher (counterpart of sasvqa_tpu/data/pipeline.py).
 
-The sampler is deterministic and seeded.  Rank and world size are always
-passed explicitly (default: one process); nothing is read from a
-distributed runtime.  :class:`DevicePrefetcher` stages the next batch
+The sampler is deterministic and seeded.  A rank's share is always
+passed explicitly (default: one process): its rows of every global batch
+(``host_positions``, from ``parallel.mesh.host_batch_positions``), or the
+older rank/world-size stride split; nothing is read from a distributed
+runtime.  :class:`DevicePrefetcher` stages the next batch
 into pinned host memory and copies it to the GPU on a side CUDA stream
 while the current step computes (the reference's CUDA-stream
 PrefetchLoader, src/datasets/dataloader.py:85-144).
@@ -146,16 +148,26 @@ def epoch_batches(dataset, collator, batch_size: int, shuffle: bool,
                   rng: Optional[np.random.Generator] = None,
                   drop_last: bool = False, rank: int = 0,
                   world_size: int = 1,
-                  pool: Optional[CollatorPool] = None
+                  pool: Optional[CollatorPool] = None,
+                  host_positions: Optional[np.ndarray] = None,
+                  global_batch: Optional[int] = None
                   ) -> Iterator[Dict[str, Any]]:
-    """One epoch of collated host batches of this rank's shard, collated
+    """One epoch of collated host batches of this rank's share, collated
     in ``pool``'s workers when one is given.
+
+    General form (``host_positions`` + ``global_batch``): every rank
+    walks the same permutation in global batches of ``global_batch``
+    samples and collates the rows at ``host_positions`` of each;
+    replicas (the same positions) collate identical rows with identical
+    generators.  Stride form (``rank``/``world_size`` only): the rank's
+    stride split of the permutation, in batches of ``batch_size``.
 
     Exactly two draws are taken from ``rng`` per epoch (a permutation
     seed and a collation seed), whatever the shard size or sampling
     policy, and each batch collates with its own generator seeded by
-    (collation seed, rank, batch index): the JAX package's stream, draw
-    for draw, with or without a pool."""
+    (collation seed, rank, batch index), or in the general form by
+    (collation seed, batch index, first position): the JAX package's
+    stream, draw for draw, with or without a pool."""
     if shuffle:
         if rng is None:
             raise ValueError("shuffle=True needs an rng")
@@ -165,16 +177,31 @@ def epoch_batches(dataset, collator, batch_size: int, shuffle: bool,
         order = np.arange(len(dataset))
     collate_seed = (int(rng.integers(0, 2 ** 63))
                     if rng is not None else 0)
-    if world_size > 1:
-        order = shard_for_host(order, rank, world_size)
-    if drop_last and len(order) < batch_size:
-        raise ValueError(
-            f"per-rank shard of {len(order)} samples yields zero drop_last "
-            f"batches of size {batch_size}: training would spin forever; "
-            "shrink the batch or the rank count")
-    batches = batch_indices(len(order), batch_size, False, None,
-                            drop_last=drop_last, order=order)
-    seeds = [(collate_seed, rank, b) for b in range(len(batches))]
+    if host_positions is not None:
+        gb = int(global_batch)
+        n_steps = len(order) // gb if drop_last else -(-len(order) // gb)
+        if n_steps == 0:
+            raise ValueError(
+                f"{len(order)} samples yield zero drop_last global batches "
+                f"of {gb}: training would spin forever; shrink the batch")
+        if n_steps * gb > len(order):
+            order = np.resize(order, n_steps * gb)
+        pos = np.asarray(host_positions)
+        batches = [order[t * gb + pos] for t in range(n_steps)]
+        # seeded by the rank's row block: replicas collate identically,
+        # disjoint blocks draw independently
+        seeds = [(collate_seed, b, int(pos[0])) for b in range(n_steps)]
+    else:
+        if world_size > 1:
+            order = shard_for_host(order, rank, world_size)
+        if drop_last and len(order) < batch_size:
+            raise ValueError(
+                f"per-rank shard of {len(order)} samples yields zero "
+                f"drop_last batches of size {batch_size}: training would "
+                "spin forever; shrink the batch or the rank count")
+        batches = batch_indices(len(order), batch_size, False, None,
+                                drop_last=drop_last, order=order)
+        seeds = [(collate_seed, rank, b) for b in range(len(batches))]
     if pool is not None:
         yield from pool.imap(zip(batches, seeds))
         return
@@ -186,14 +213,19 @@ def epoch_batches(dataset, collator, batch_size: int, shuffle: bool,
 def infinite_batches(dataset, collator, batch_size: int,
                      rng: np.random.Generator, drop_last: bool = True,
                      rank: int = 0, world_size: int = 1,
-                     pool: Optional[CollatorPool] = None
+                     pool: Optional[CollatorPool] = None,
+                     host_positions: Optional[np.ndarray] = None,
+                     global_batch: Optional[int] = None
                      ) -> Iterator[Dict[str, Any]]:
     """Reshuffles each epoch and never ends (the reference's
-    InfiniteIterator, dataloader.py:147-160)."""
+    InfiniteIterator, dataloader.py:147-160); the share arguments are
+    :func:`epoch_batches`'."""
     while True:
         yield from epoch_batches(dataset, collator, batch_size,
                                  shuffle=True, rng=rng, drop_last=drop_last,
-                                 rank=rank, world_size=world_size, pool=pool)
+                                 rank=rank, world_size=world_size, pool=pool,
+                                 host_positions=host_positions,
+                                 global_batch=global_batch)
 
 
 def stack_microbatches(it: Iterator[Dict[str, Any]], k: int,

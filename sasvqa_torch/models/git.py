@@ -26,7 +26,7 @@ dense route applies the same hash mask densely.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -423,15 +423,18 @@ def _on_device(x, device: torch.device, dtype: Optional[torch.dtype] = None
 def greedy_generate(model: GITForCausalLM, input_ids, prompt_len,
                     pixel_values, max_text_len: int = 50,
                     max_new_tokens: Optional[int] = None,
-                    device: DeviceLike = "cuda") -> torch.Tensor:
+                    device: DeviceLike = "cuda",
+                    all_done: Optional[Callable[[torch.Tensor], bool]] = None
+                    ) -> torch.Tensor:
     """Greedy decoding to ``max_text_len`` total text tokens per example.
 
     Each example stops at [SEP] or when its own text length (prompt +
     generated) reaches ``max_text_len``; finished rows emit pad.  Returns
     (B, max_new) generated token ids.  The loop exits as soon as every
     row is finished; that check reads one flag from the device per
-    token.  Inputs may be numpy arrays or tensors; they are moved to
-    ``device``."""
+    token (``all_done(done)`` decides instead when given: ranks whose
+    forward communicates exit together).  Inputs may be numpy arrays or
+    tensors; they are moved to ``device``."""
     dev = resolve_device(device)
     eos = model.config.sep_token_id
     pad = model.config.pad_token_id
@@ -453,7 +456,7 @@ def greedy_generate(model: GITForCausalLM, input_ids, prompt_len,
                      device=dev)
     buf[:, 0] = tok
     for i in range(1, max_new):
-        if bool(done.all()):
+        if all_done(done) if all_done is not None else bool(done.all()):
             break
         logits, cache = model.decode_step(tok, cache)
         nxt = logits.argmax(dim=-1)

@@ -58,6 +58,18 @@ _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
 
 
+def refuse_dtensor(*xs) -> None:
+    """Raise on a DTensor: the kernels and their plain versions take the
+    local, plain tensors of a rank (tensor parallelism hands them local
+    heads); a DTensor here is a sharding bug, not a route."""
+    import torch
+    if torch.distributed.is_available():
+        from torch.distributed.tensor import DTensor
+        if any(isinstance(x, DTensor) for x in xs):
+            raise TypeError("attention kernels take plain tensors, got a "
+                            "DTensor: pass the rank's local shard")
+
+
 def count_launch(name: str) -> None:
     launch_counts[name] += 1
 

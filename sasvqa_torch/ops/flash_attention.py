@@ -118,6 +118,7 @@ def _check(q, k, v, *more):
     """The kernels' contract on q (B, H, Lq, 64), k/v (B, H, Lk, 64) and
     the (B, H, Lq, 64) tensors in ``more``, all bf16 on one GPU."""
     xs = (q, k, v) + more
+    _build.refuse_dtensor(*xs)
     if not all(x.is_cuda for x in xs):
         raise ValueError("flash kernels need every tensor on the GPU")
     if any(x.dtype != torch.bfloat16 for x in xs):
@@ -242,6 +243,7 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(O, LSE) of :func:`flash_attention`: K5 on CUDA tensors,
     :func:`flash_attention_reference` on CPU tensors."""
+    _build.refuse_dtensor(q, k, v, bias)
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, bias)
     return _launch_fwd(q, k, v, bias)
@@ -253,6 +255,7 @@ def flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dQ, dK, dV) from the forward's O and LSE: K6 on CUDA tensors,
     :func:`flash_backward_reference` on CPU tensors."""
+    _build.refuse_dtensor(q, k, v, bias)
     if q.device.type == "cpu":
         return flash_backward_reference(q, k, v, o, lse, do, bias)
     dq, delta = _launch_dq(q, k, v, o, lse, do, bias)
@@ -290,4 +293,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """(B, H, Lq, Dh) x (B, H, Lk, Dh) -> (B, H, Lq, Dh) attention with an
     additive ``bias`` broadcastable from (B|1, H|1, 1|Lq, Lk);
     differentiable in q, k, v and the bias."""
+    _build.refuse_dtensor(q, k, v, bias)
     return _FlashFunction.apply(q, k, v, bias)

@@ -332,6 +332,7 @@ def _kernel_fn(name: str):
 
 
 def _check(attention_mask, num_img, *xs):
+    _build.refuse_dtensor(attention_mask, *xs)
     q = xs[0]
     if not (all(x.is_cuda for x in xs) and attention_mask.is_cuda):
         raise ValueError("git_flash kernels need every tensor on the GPU")
@@ -540,6 +541,7 @@ def git_flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     LSE, routed by :data:`FUSED_BWD`: K2 or K3 on CUDA tensors,
     :func:`git_flash_backward_reference` or
     :func:`git_flash_backward_split_reference` on CPU tensors."""
+    _build.refuse_dtensor(q, k, v, o, lse, do, attention_mask)
     args = (q, k, v, o, lse, do, attention_mask, num_img, rate, seed)
     fused = FUSED_BWD
     if q.device.type == "cpu":
@@ -587,6 +589,7 @@ def git_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``seed`` (an int32 value or a one-element int tensor, varied per
     layer and step) is then required.  Returns (O (B, H, S, Dh) in q's
     dtype, LSE (B, H, S) f32); O is differentiable in q, k and v."""
+    _build.refuse_dtensor(q, k, v, attention_mask)
     if rate > 0.0 and seed is None:
         raise ValueError("rate > 0 requires a dropout seed")
     if not 0.0 <= rate < 1.0:

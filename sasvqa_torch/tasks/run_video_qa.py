@@ -12,9 +12,14 @@ transition, CLIP and BLIP), collation in worker processes (``n_workers``),
 every optimizer of the JAX package and its MultiSteps accumulation
 (``scan_accum: 0``); ``model.pretrained_weights`` names a local HF
 checkpoint that is overlaid on the seeded init.  It runs on the GPU unless
-the config sets ``"platform": "cpu"``.  Not ported yet (each raises
-``NotImplementedError``; ROADMAP.md lists them): a ``mesh_shape`` of more
-than one device and multi-process training.
+the config sets ``"platform": "cpu"``.
+
+Under ``torchrun --nproc_per_node N`` it trains and validates across N
+processes, one a device (``parallel/mesh.py``): ``mesh_shape`` (of size
+N) over ``mesh_axes`` ``data`` (gradients all-reduced), ``fsdp`` (FSDP2)
+and ``model`` (tensor parallelism); the global batch is
+``train_batch_size`` times N, each rank collates its rows, and
+validation gathers every rank's answers so that all ranks score alike.
 """
 
 from __future__ import annotations
@@ -50,12 +55,15 @@ from sasvqa_torch.data.tokenization import (CLIPBPETokenizer,
                                             make_test_wordpiece)
 from sasvqa_torch.models.presets import (MC_TASKS, build_model,
                                          load_pretrained_params)
+from sasvqa_torch.parallel.mesh import (ParallelPlan, fetch_replicated,
+                                        host_batch_positions,
+                                        init_distributed,
+                                        load_full_state_dict, make_mesh,
+                                        param_sharding_for_mesh, rank,
+                                        shard_batch, world_size)
 from sasvqa_torch.train import steps as train_steps
 from sasvqa_torch.train.retrieval import aggregate_clip_scores
 from sasvqa_torch.utils.basic import get_rounded_percentage, save_json
-
-_NOT_PORTED = "is not ported yet (see ROADMAP.md)"
-
 
 def build_tokenizer(cfg: Mapping[str, Any], family: str):
     """CLIP's BPE from ``tokenizer_dir``'s vocab.json + merges.txt (the
@@ -117,7 +125,9 @@ def validate(dataset, collator, cfg, tokenizer, ans2label,
              eval_score: bool = True, tag: str = "valid",
              family: str = "git",
              logits_step: Optional[Callable[[Dict[str, Any]],
-                                            torch.Tensor]] = None
+                                            torch.Tensor]] = None,
+             plan: Optional[ParallelPlan] = None,
+             device: Optional[torch.device] = None
              ) -> Dict[str, Any]:
     """Evaluation (reference validate, run_video_qa.py:283-387): an answer
     for every question of ``dataset``, scored by :func:`evaluate_qa`.
@@ -132,7 +142,13 @@ def validate(dataset, collator, cfg, tokenizer, ans2label,
     first clip); a classifier pools the clips' logits from
     ``logits_step`` by ``score_agg_func`` (one clip without a
     ``logits_step``).  One batch is in flight: batch i is dispatched
-    before batch i-1's answers are decoded."""
+    before batch i-1's answers are decoded.
+
+    A collated batch moves to ``device`` when one is given.  Under a
+    ``plan`` every rank walks the same plan of global batches (a multiple
+    of the world size), collates its rows (``host_batch_positions``) and
+    gathers every rank's answers in row order, so that all ranks build
+    the same results."""
     st = time.time()
     qa_results: List[Dict[str, Any]] = []
     n_ex = 0
@@ -140,6 +156,11 @@ def validate(dataset, collator, cfg, tokenizer, ans2label,
     # validation at val_batch_size (run_video_qa.py:154-157)
     eval_bs = max(int(cfg.inference_batch_size if cfg.get("do_inference")
                       else cfg.val_batch_size), 1)
+    global_bs, positions = eval_bs, None
+    if plan is not None:
+        n_dev = world_size()
+        global_bs = -(-max(eval_bs, n_dev) // n_dev) * n_dev
+        positions = host_batch_positions(plan.mesh, global_bs)
     classifier = family != "git"
     ensemble = int(cfg.get("inference_n_clips", 1))
     if classifier and logits_step is None:
@@ -158,28 +179,31 @@ def validate(dataset, collator, cfg, tokenizer, ans2label,
     def stage(batch):
         for k in DevicePrefetcher.HOST_KEYS:
             batch.pop(k, None)
-        return batch
+        return batch if device is None else shard_batch(batch, device)
 
     def dispatch(idx_p, n_real_groups):
         gqids = [e["question_id"] for i in idx_p
                  for e in dataset.datalist[int(i)][1]]
         n_real = sum(len(dataset.datalist[int(i)][1])
                      for i in idx_p[:n_real_groups])
+        local_idx = idx_p if positions is None else idx_p[positions]
         # one read per video for every clip, and one get_group outcome
-        items = [dataset.get_group(int(i)) for i in idx_p]
-        raw = collator(items, rng=clip_rngs(idx_p, 0))
-        if raw.get("question_ids") != gqids:
+        items = [dataset.get_group(int(i)) for i in local_idx]
+        raw = collator(items, rng=clip_rngs(local_idx, 0))
+        if raw.get("question_ids") != [e["question_id"] for i in local_idx
+                                       for e in dataset.datalist[int(i)][1]]:
             raise RuntimeError("eval prediction attribution drift")
         outs = [run(stage(raw))]
         # extra clips re-run only the collator (frame re-sampling lives
         # there) on the items read above
-        outs += [run(stage(collator(items, rng=clip_rngs(idx_p, c))))
+        outs += [run(stage(collator(items, rng=clip_rngs(local_idx, c))))
                  for c in range(1, ensemble)]
         return gqids, n_real, outs
 
     def consume(pending):
         nonlocal n_ex
         gqids, n_real, outs = pending
+        outs = [fetch_replicated(o, plan) for o in outs]
         n_ex += n_real
         if classifier:
             if ensemble > 1:
@@ -208,7 +232,7 @@ def validate(dataset, collator, cfg, tokenizer, ans2label,
 
     in_flight = None
     for b_idx, (idx_p, n_real_groups) in enumerate(
-            eval_batch_plan(len(dataset), eval_bs)):
+            eval_batch_plan(len(dataset), global_bs)):
         cur = dispatch(idx_p, n_real_groups)
         if in_flight is not None:
             consume(in_flight)
@@ -238,11 +262,13 @@ def validate(dataset, collator, cfg, tokenizer, ans2label,
     return {"qa_results": qa_results, "scores": gathered}
 
 
-def step_math(cfg, n_train_groups: int) -> Tuple[int, int, int]:
-    """(num_train_steps, valid_steps, save_steps) on one device
-    (reference run_video_qa.py:424-435; save_steps counts micro steps)."""
+def step_math(cfg, n_train_groups: int, n_dev: int = 1
+              ) -> Tuple[int, int, int]:
+    """(num_train_steps, valid_steps, save_steps) on ``n_dev`` devices,
+    each taking ``train_batch_size`` groups a micro (reference
+    run_video_qa.py:424-435; save_steps counts micro steps)."""
     total_n_examples = n_train_groups * cfg.max_n_example_per_group
-    total_train_batch_size = int(cfg.train_batch_size
+    total_train_batch_size = int(n_dev * cfg.train_batch_size
                                  * cfg.gradient_accumulation_steps
                                  * cfg.max_n_example_per_group)
     num_train_steps = int(math.ceil(
@@ -256,28 +282,23 @@ def step_math(cfg, n_train_groups: int) -> Tuple[int, int, int]:
     return num_train_steps, valid_steps, save_steps
 
 
-def _check_ported(cfg) -> None:
-    if int(np.prod(cfg.get("mesh_shape") or [1])) > 1:
-        raise NotImplementedError(f"a mesh of more than one device "
-                                  f"{_NOT_PORTED}: the port trains on one")
-    if torch.distributed.is_available() and \
-            torch.distributed.is_initialized():
-        raise NotImplementedError(f"multi-process training (M11) "
-                                  f"{_NOT_PORTED}")
-
-
 def start_training(cfg, *, open_store: Callable[[str], Any] = FrameStoreReader
                    ) -> Dict[str, Any]:
     """Train the model of ``cfg`` (GIT, CLIP or BLIP) with validation on
     its cadence, then a final validation; returns the final scores, the
     running train loss and the global step.  ``open_store`` opens the
-    frame stores (default HDF5; see :func:`setup_datasets`)."""
+    frame stores (default HDF5; see :func:`setup_datasets`).  Under a
+    process group the mesh is ``mesh_shape`` over ``mesh_axes``, whose
+    size must be the world size (a ValueError otherwise)."""
     platform = cfg.get("platform")
     if platform not in (None, "cpu", "gpu", "cuda"):
         raise ValueError(f"platform {platform!r}: the port runs on 'cpu' "
                          f"or the GPU")
     dev = resolve_device("cpu" if platform == "cpu" else "cuda")
-    _check_ported(cfg)
+    mesh = make_mesh(cfg.get("mesh_shape"), cfg.get("mesh_axes"),
+                     platform)
+    if mesh is not None and dev.type == "cuda":
+        dev = torch.device("cuda", torch.cuda.current_device())
     init_gen, host_rng = set_random_seed(cfg.seed)
 
     is_mc = cfg.task in MC_TASKS
@@ -306,7 +327,7 @@ def start_training(cfg, *, open_store: Callable[[str], Any] = FrameStoreReader
                                                open_store=open_store)
 
     cfg.num_train_steps, cfg.valid_steps, save_steps = step_math(
-        cfg, len(train_ds))
+        cfg, len(train_ds), world_size())
 
     collator = make_collator(family, tokenizer, cfg)
     # the JAX package collates one probe group for its init shapes; the
@@ -315,14 +336,21 @@ def start_training(cfg, *, open_store: Callable[[str], Any] = FrameStoreReader
     weights_path = cfg.model.get("pretrained_weights")
     if weights_path:
         load_pretrained_params(family, model, weights_path)
+    plan = param_sharding_for_mesh(model, mesh)
     state = train_steps.create_train_state(
-        model, cfg, total_steps=cfg.num_train_steps, device=dev)
+        model, cfg, total_steps=cfg.num_train_steps, device=dev, plan=plan)
 
     output_dir = cfg.get("output_dir") or "output/run"
     os.makedirs(output_dir, exist_ok=True)
-    save_training_meta(output_dir, cfg)
-    TB_LOGGER.create(os.path.join(output_dir, "log"))
-    log_file = add_log_to_file(os.path.join(output_dir, "log", "log.txt"))
+    # rank 0 alone writes the run's metadata, scalars and log.txt; the
+    # other ranks log to log.host{rank}.txt
+    if rank() == 0:
+        save_training_meta(output_dir, cfg)
+        TB_LOGGER.create(os.path.join(output_dir, "log"))
+        log_name = "log.txt"
+    else:
+        log_name = f"log.host{rank()}.txt"
+    log_file = add_log_to_file(os.path.join(output_dir, "log", log_name))
     previous = {}   # the signal handlers this run replaces
     try:
         return _run(cfg, family, model, state, tokenizer, ans2label,
@@ -356,8 +384,9 @@ def _run(cfg, family, model, state, tokenizer, ans2label, collator, host_rng,
         else:
             LOGGER.info(f"inference: restoring eval snapshot "
                         f"model_step_{target} from {saver.dir}")
-            model.load_state_dict(saver.restore(int(target)), strict=True)
+            load_full_state_dict(model, saver.restore(int(target)))
 
+    plan = state.plan
     accum = int(cfg.gradient_accumulation_steps)
     use_scan = accum > 1 and bool(cfg.get("scan_accum", 1))
     gmean = bool(cfg.get("accum_grad_mean", 1))
@@ -377,7 +406,8 @@ def _run(cfg, family, model, state, tokenizer, ans2label, collator, host_rng,
                       if use_scan else train_steps.make_git_train_step(dev))
         eval_step = train_steps.make_git_eval_step(
             model, max_text_len=cfg.get("gen_max_text_len", 50),
-            max_new_tokens=cfg.get("gen_max_new_tokens"), device=dev)
+            max_new_tokens=cfg.get("gen_max_new_tokens"), device=dev,
+            plan=plan)
         eval_collator = GITCollator(
             tokenizer, max_txt_len=cfg.max_txt_len,
             max_seq_len=cfg.get("max_seq_len", cfg.max_txt_len + 12),
@@ -393,7 +423,8 @@ def _run(cfg, family, model, state, tokenizer, ans2label, collator, host_rng,
         if int(cfg.get("inference_n_clips", 1)) > 1:
             logits_step = train_steps.make_classifier_logits_step(
                 model, device=dev)
-    evaluate = dict(family=family, logits_step=logits_step)
+    evaluate = dict(family=family, logits_step=logits_step, plan=plan,
+                    device=dev)
 
     LOGGER.info(f"***** training: {cfg.num_train_steps} steps, validate "
                 f"every {cfg.valid_steps}, on {dev} *****")
@@ -407,9 +438,11 @@ def _run(cfg, family, model, state, tokenizer, ans2label, collator, host_rng,
             res = validate(ds, eval_collator, cfg, tokenizer, ans2label,
                            eval_step, eval_score=not split.startswith("test"),
                            tag=f"{tag_prefix}{split}", **evaluate)
-            save_json([{k: v for k, v in r.items() if k != "data"}
-                       for r in res["qa_results"]],
-                      os.path.join(output_dir, f"qa_results_{split}.json"))
+            if rank() == 0:
+                save_json([{k: v for k, v in r.items() if k != "data"}
+                           for r in res["qa_results"]],
+                          os.path.join(output_dir,
+                                       f"qa_results_{split}.json"))
             empty = {"qa_results": [], "scores": {}}
             return (res, empty) if split == "val" else (empty, res)
         res_v = validate(val_ds, eval_collator, cfg, tokenizer, ans2label,
@@ -486,8 +519,17 @@ def _train_loop(cfg, state, train_step, train_ds, collator, host_rng,
         n_workers = int(cfg.get("n_workers", 0) or 0)
         if n_workers > 0:
             pool = CollatorPool(train_ds, collator, n_workers)
-        source = infinite_batches(train_ds, collator, cfg.train_batch_size,
-                                  host_rng, pool=pool)
+        # the global batch is train_batch_size a device; with more than
+        # one rank each collates its rows of it
+        global_batch = cfg.train_batch_size * world_size()
+        positions = None
+        if world_size() > 1:
+            positions = host_batch_positions(state.plan.mesh, global_batch)
+        source = infinite_batches(
+            train_ds, collator,
+            global_batch if positions is None else len(positions),
+            host_rng, pool=pool, host_positions=positions,
+            global_batch=global_batch)
         if use_scan:
             source = stack_microbatches(source, accum)
         # a K-stacked batch is K times the device bytes: depth 1 still
@@ -598,8 +640,10 @@ def _train_loop(cfg, state, train_step, train_ds, collator, host_rng,
 def main(argv: Optional[List[str]] = None, *,
          open_store: Callable[[str], Any] = FrameStoreReader):
     """The command line: ``get_video_qa_args(argv)``, then
-    :func:`start_training` with ``open_store``."""
+    :func:`start_training` with ``open_store``; under torchrun
+    (``WORLD_SIZE`` set) it first joins the process group."""
     cfg = get_video_qa_args(argv)
+    init_distributed(cfg.get("platform"))
     if cfg.do_inference:
         # a standalone validation pass: zero train steps fall straight
         # through to the final validation

@@ -10,13 +10,16 @@ periodic validation, snapshots and the metrics JSONL.
     python -m sasvqa_torch.tools.quickstart --family git     # generative path
     python -m sasvqa_torch.tools.quickstart --family mc      # TGIF-QA action MC
     python -m sasvqa_torch.tools.quickstart --platform cpu   # on the CPU
+    torchrun --nproc_per_node 2 -m sasvqa_torch.tools.quickstart \
+        --mesh 2 --platform cpu                             # 2 ranks (gloo)
 
 It runs on the GPU unless ``--platform cpu`` is given.  Everything lands
 under ``--root`` (default: ``sasvqa_quickstart`` in the temporary
 directory): ``data/`` fixtures, ``cfg.json``, and ``out/`` with
 ``log/scalars.jsonl`` and the checkpoints, the layout a real run
-produces.  ``--mesh`` more than 1 raises, as the port's loop does: it
-trains on one device.
+produces.  ``--mesh N`` trains data-parallel over the N processes of a
+``torchrun --nproc_per_node N`` launch (rank 0 writes the fixtures); N
+more than the processes raises the loop's ValueError.
 """
 
 from __future__ import annotations
@@ -91,27 +94,33 @@ def main(argv=None, *, writer: Callable[..., Any] = FrameStoreWriter,
     p.add_argument("--root", default=os.path.join(tempfile.gettempdir(),
                                                   "sasvqa_quickstart"))
     p.add_argument("--mesh", type=int, default=1,
-                   help="data-parallel mesh size; the port trains on one "
-                        "device, so more than 1 raises")
+                   help="data-parallel mesh size: the number of processes "
+                        "(torchrun --nproc_per_node)")
     p.add_argument("--epochs", type=int, default=1)
     p.add_argument("--platform", default=None,
                    help="'cpu' runs on the CPU; default: the GPU")
     args = p.parse_args(argv)
 
+    from sasvqa_torch.parallel.mesh import barrier, init_distributed, rank
+    init_distributed(args.platform)
     os.makedirs(args.root, exist_ok=True)
     data_root = os.path.join(args.root, "data")
-    if args.family == "mc":
-        from sasvqa_torch.data.synthetic import make_synthetic_mc_dataset
-        paths = make_synthetic_mc_dataset(data_root, num_videos=4,
-                                          stored_frames=8, img_hw=32,
-                                          writer=writer)
-    else:
-        from sasvqa_torch.data.synthetic import make_synthetic_dataset
-        paths = make_synthetic_dataset(data_root, num_videos=4,
-                                       stored_frames=8, img_hw=32,
-                                       questions_per_video=2, writer=writer)
-    cfg_path = build_config(args.root, paths, args.family, args.mesh,
-                            args.epochs, args.platform)
+    cfg_path = os.path.join(args.root, "cfg.json")
+    if rank() == 0:     # one writer of the fixtures and the config
+        if args.family == "mc":
+            from sasvqa_torch.data.synthetic import make_synthetic_mc_dataset
+            paths = make_synthetic_mc_dataset(data_root, num_videos=4,
+                                              stored_frames=8, img_hw=32,
+                                              writer=writer)
+        else:
+            from sasvqa_torch.data.synthetic import make_synthetic_dataset
+            paths = make_synthetic_dataset(data_root, num_videos=4,
+                                           stored_frames=8, img_hw=32,
+                                           questions_per_video=2,
+                                           writer=writer)
+        cfg_path = build_config(args.root, paths, args.family, args.mesh,
+                                args.epochs, args.platform)
+    barrier()
     print(f"[quickstart] synthetic data: {data_root}")
     print(f"[quickstart] config:         {cfg_path}")
 

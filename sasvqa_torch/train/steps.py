@@ -24,6 +24,18 @@ state): a step returns the same :class:`TrainState` with ``step``
 advanced, and leaves the gradient it applied in each parameter's
 ``.grad``.  Dropout in a step draws from a ``torch.Generator`` seeded from
 (seed, micro step), the counterpart of ``jax.random.fold_in``.
+
+Under a process group (``TrainState.plan``, a
+:class:`~sasvqa_torch.parallel.mesh.ParallelPlan`) a step computes the
+JAX package's loss over the global batch: each micro all-reduces its
+count of loss targets, each rank scales its local mean by its share of
+that count, and the gradients are summed over the data-parallel ranks
+once a micro (by FSDP2 for the leaves it shards, by one coalesced
+all-reduce for the rest).  Parameters, gradients and optimizer moments
+may be DTensors; the optimizer works on each rank's shards and clips by
+the global norm over every shard.  The dropout generator folds in the
+rank's data-parallel coordinate, so that tensor-parallel replicas draw
+the same masks.
 """
 
 from __future__ import annotations
@@ -36,12 +48,15 @@ from typing import (Any, Callable, Dict, List, Mapping, Optional, Sequence,
 import numpy as np
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor, Partial, Replicate
 
 from sasvqa_torch.core.device import DeviceLike, resolve_device
 from sasvqa_torch.core.logging import LOGGER
 from sasvqa_torch.core.pixels import host_tensor
 from sasvqa_torch.models.convert import flax_param_names
 from sasvqa_torch.models.git import greedy_generate
+from sasvqa_torch.parallel.mesh import (ParallelPlan, full, is_dtensor,
+                                        load_full_into, local)
 from sasvqa_torch.train.schedules import Schedule, get_lr_schedule, lr_value
 
 # Flax parameter-path fragments that never get weight decay: every bias
@@ -72,8 +87,22 @@ def _f32(x: float) -> float:
 
 
 def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of squares of every element, in f32."""
-    return torch.sqrt(sum(torch.sum(t.float() * t.float()) for t in tensors))
+    """sqrt of the sum of squares of every element, in f32.  A DTensor
+    counts each of its elements once: its shards' partial sums are
+    reduced over the mesh dims it is sharded on (one reduction for each
+    layout)."""
+    total = sum(torch.sum(t.float() * t.float()) for t in tensors
+                if not is_dtensor(t))
+    partial: Dict[Any, torch.Tensor] = {}
+    for t in filter(is_dtensor, tensors):
+        key = (t.device_mesh, tuple(t.placements))
+        lt = t.to_local().float()
+        partial[key] = partial.get(key, 0) + torch.sum(lt * lt)
+    for (mesh, placements), s in partial.items():
+        total = total + DTensor.from_local(
+            s, mesh, [Replicate() if p.is_replicate() else Partial()
+                      for p in placements]).full_tensor()
+    return torch.sqrt(total)
 
 
 class AdamW:
@@ -124,7 +153,7 @@ class AdamW:
         self._bc2 = _f32(np.float32(1.0) - np.float32(self.b2) ** t)
 
     def _direction(self, i: int, g: torch.Tensor) -> torch.Tensor:
-        mu, nu = self.mu[i], self.nu[i]
+        mu, nu = local(self.mu[i]), local(self.nu[i])
         if self.moment_dtype == torch.float32:
             mu.mul_(self.b1).add_(g * (1.0 - self.b1))
             nu.mul_(self.b2).add_(g * g * (1.0 - self.b2))
@@ -138,6 +167,8 @@ class AdamW:
     @torch.no_grad()
     def update(self, grads: Sequence[torch.Tensor]) -> torch.Tensor:
         norm = global_norm(grads)
+        # every update below is elementwise: it runs on each rank's shards
+        grads = [local(g) for g in grads]
         if self.max_norm and self.max_norm > 0:
             keep = norm < self.max_norm
             grads = [torch.where(keep, g, (g / norm) * self.max_norm)
@@ -147,6 +178,7 @@ class AdamW:
         self._corrections(np.float32(self.count))
         for i, (p, g, decay, mul) in enumerate(zip(
                 self.params, grads, self.decay, self.lr_mul)):
+            p = local(p)
             upd = self._direction(i, g.float())
             if decay:
                 upd = upd + self.weight_decay * p
@@ -157,16 +189,17 @@ class AdamW:
         return norm
 
     def state_dict(self) -> Dict[str, Any]:
-        """The optimizer state as tensors (on the CPU) and ints."""
+        """The optimizer state as whole tensors (on the CPU) and ints
+        (every rank calls it: sharded moments are gathered)."""
         return {"count": self.count,
-                **{k: [t.detach().cpu() for t in v]
+                **{k: [full(t).detach().cpu() for t in v]
                    for k, v in self._moments().items()}}
 
     @torch.no_grad()
     def load_state_dict(self, state: Mapping[str, Any]) -> None:
         for key, dst in self._moments().items():
             for d, src in zip(dst, state[key]):
-                d.copy_(src)
+                load_full_into(d, src)
         self.count = int(state["count"])
 
 
@@ -184,7 +217,7 @@ class Adamax(AdamW):
         self._bc1 = _f32(np.float32(1.0) - np.float32(self.b1) ** t)
 
     def _direction(self, i: int, g: torch.Tensor) -> torch.Tensor:
-        mu, nu = self.mu[i], self.nu[i]
+        mu, nu = local(self.mu[i]), local(self.nu[i])
         mu.copy_((1.0 - self.b1) * g + self.b1 * mu)
         nu.copy_(torch.maximum(g.abs() + self.eps, self.b2 * nu))
         return (mu / self._bc1) / nu
@@ -239,7 +272,7 @@ class MultiSteps:
     @torch.no_grad()
     def update(self, grads: Sequence[torch.Tensor]) -> torch.Tensor:
         n = self.mini_step
-        for a, g in zip(self.acc, grads):
+        for a, g in zip(map(local, self.acc), map(local, grads)):
             if self.use_grad_mean:
                 a.add_((g - a) / (n + 1))
             else:
@@ -257,13 +290,13 @@ class MultiSteps:
     def state_dict(self) -> Dict[str, Any]:
         return {"mini_step": self.mini_step,
                 "gradient_step": self.gradient_step,
-                "acc": [a.detach().cpu() for a in self.acc],
+                "acc": [full(a).detach().cpu() for a in self.acc],
                 "inner": self.inner.state_dict()}
 
     @torch.no_grad()
     def load_state_dict(self, state: Mapping[str, Any]) -> None:
         for dst, src in zip(self.acc, state["acc"]):
-            dst.copy_(src)
+            load_full_into(dst, src)
         self.mini_step = int(state["mini_step"])
         self.gradient_step = int(state["gradient_step"])
         self.inner.load_state_dict(state["inner"])
@@ -343,20 +376,26 @@ def lr_at(cfg: Mapping[str, Any], total_steps: int, global_step: int) -> float:
 
 @dataclasses.dataclass
 class TrainState:
-    """``step`` counts micro steps; the model holds the parameters."""
+    """``step`` counts micro steps; the model holds the parameters;
+    ``plan`` says how the ranks of a process group share the work (None:
+    one process)."""
     step: int
     model: nn.Module
     optimizer: Optimizer
+    plan: Optional[ParallelPlan] = None
 
 
 def create_train_state(model: nn.Module, cfg: Mapping[str, Any],
-                       total_steps: int, device: DeviceLike = "cuda"
-                       ) -> TrainState:
+                       total_steps: int, device: DeviceLike = "cuda",
+                       plan: Optional[ParallelPlan] = None) -> TrainState:
     """Move ``model`` to ``device`` in training mode and build its
-    optimizer."""
+    optimizer.  A sharded model (``plan`` from
+    ``parallel.mesh.param_sharding_for_mesh``) is sharded before this, so
+    that the optimizer holds its sharded parameters."""
     model.to(resolve_device(device)).train()
     return TrainState(step=0, model=model,
-                      optimizer=make_optimizer(cfg, total_steps, model))
+                      optimizer=make_optimizer(cfg, total_steps, model),
+                      plan=plan)
 
 
 _M64 = (1 << 64) - 1
@@ -384,24 +423,30 @@ def _inputs(batch: Mapping[str, Any], dev: torch.device):
 def _git_loss(model: nn.Module, batch: Mapping[str, Any],
               generator: torch.Generator, dev: torch.device
               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """The training forward (dropouts on) of one micro-batch."""
-    out = model(*_inputs(batch, dev),
-                labels=_tensor(batch["labels"], dev, torch.long),
-                deterministic=False, generator=generator)
-    return out["loss"], {}
+    """The training forward (dropouts on) of one micro-batch; its loss
+    averages over the shifted labels other than -100."""
+    labels = _tensor(batch["labels"], dev, torch.long)
+    out = model(*_inputs(batch, dev), labels=labels, deterministic=False,
+                generator=generator)
+    return out["loss"], {"n_targets": (labels[:, 1:] != -100).sum()}
 
 
 def _classifier_loss(model: nn.Module, batch: Mapping[str, Any],
                      generator: torch.Generator, dev: torch.device
                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Loss and the train-accuracy counts over labels other than -100."""
+    """Loss and the train-accuracy counts over labels other than -100.
+    The CE loss averages over those labels, a bce or mse loss over the
+    rows."""
     labels = _tensor(batch["labels"], dev, torch.long)
     out = model(*_inputs(batch, dev), labels=labels, deterministic=False,
                 generator=generator)
     valid = labels != -100
     correct = (out["logits"].argmax(dim=-1) == labels) & valid
+    head = getattr(model, "head", None)
+    ce = labels.dim() == 1 and getattr(head, "loss_type", "ce") == "ce"
+    n = valid.sum() if ce else torch.tensor(labels.shape[0], device=dev)
     return out["loss"], {"acc_correct": correct.sum(),
-                         "acc_total": valid.sum()}
+                         "acc_total": valid.sum(), "n_targets": n}
 
 
 def _mc_loss(model: nn.Module, batch: Mapping[str, Any],
@@ -414,9 +459,9 @@ def _mc_loss(model: nn.Module, batch: Mapping[str, Any],
                                 labels=labels, deterministic=False,
                                 generator=generator)
     correct = out["logits"].argmax(dim=-1) == labels
-    return out["loss"], {"acc_correct": correct.sum(),
-                         "acc_total": torch.tensor(labels.shape[0],
-                                                   device=dev)}
+    n = torch.tensor(labels.shape[0], device=dev)
+    return out["loss"], {"acc_correct": correct.sum(), "acc_total": n,
+                         "n_targets": n}
 
 
 _LOSSES = {"git": _git_loss, "classifier": _classifier_loss, "mc": _mc_loss}
@@ -443,15 +488,26 @@ def _accumulate_and_update(state: TrainState,
                            loss_fn: LossFn
                            ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
     params = state.optimizer.params
+    plan = state.plan
     acc: List[torch.Tensor] = []
     losses, counts = [], []
     for i, mb in enumerate(micros):
-        gen = torch.Generator(device=dev).manual_seed(
-            fold_in(seed, state.step + i))
+        micro_seed = fold_in(seed, state.step + i)
+        if plan is not None and plan.dp_size > 1:
+            micro_seed = fold_in(micro_seed, plan.dp_index)
+        gen = torch.Generator(device=dev).manual_seed(micro_seed)
         for p in params:
             p.grad = None
         loss, metrics = loss_fn(state.model, mb, gen, dev)
+        n_targets = metrics.pop("n_targets")
+        if plan is not None:
+            # the global batch's loss: the local mean weighted by this
+            # rank's share of the micro's targets, summed over the ranks
+            total = plan.all_reduce(n_targets.clone())
+            loss = loss * (n_targets / total.clamp(min=1))
         loss.backward()
+        if plan is not None:
+            plan.reduce_grads(params)
         losses.append(loss.detach())
         counts.append(metrics)
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
@@ -468,10 +524,16 @@ def _accumulate_and_update(state: TrainState,
         p.grad = a
     gnorm = state.optimizer.update(acc)
     state.step += len(micros)
-    metrics = {"loss": torch.stack(losses).mean(), "grad_norm": gnorm}
+    sums = {"loss": torch.stack(losses).mean()}
     for key in counts[0]:
-        metrics[key] = torch.stack([c[key] for c in counts]).sum()
-    return state, metrics
+        sums[key] = torch.stack([c[key] for c in counts]).sum()
+    if plan is not None:
+        # the logged loss and counts are the global batch's
+        summed = plan.all_reduce(torch.stack([v.float()
+                                              for v in sums.values()]))
+        sums = dict(zip(sums, summed.unbind()))
+    loss = sums.pop("loss")
+    return state, {"loss": loss, "grad_norm": gnorm, **sums}
 
 
 TrainStep = Callable[[TrainState, Dict[str, Any], int],
@@ -618,18 +680,21 @@ def make_classifier_logits_step(model: nn.Module,
 
 def make_git_eval_step(model: nn.Module, max_text_len: int = 50,
                        max_new_tokens: Optional[int] = None,
-                       device: DeviceLike = "cuda"
+                       device: DeviceLike = "cuda",
+                       plan: Optional[ParallelPlan] = None
                        ) -> Callable[[Dict[str, Any]], torch.Tensor]:
     """Generative eval: batch -> (B, max_new) greedy token ids on
     ``device``, computed under ``torch.inference_mode()`` (greedy_generate
     enters it).  ``max_new_tokens=None`` decodes to the full
-    ``max_text_len`` budget, with the all-done early exit."""
+    ``max_text_len`` budget, with the all-done early exit (agreed by
+    every rank when the ``plan``'s forward communicates)."""
     dev = resolve_device(device)
+    all_done = plan.all_done if plan is not None else None
 
     def step(batch: Dict[str, Any]) -> torch.Tensor:
         return greedy_generate(
             model, batch["text_input_ids"], batch["prompt_len"],
             batch["visual_inputs"], max_text_len=max_text_len,
-            max_new_tokens=max_new_tokens, device=dev)
+            max_new_tokens=max_new_tokens, device=dev, all_done=all_done)
 
     return step

@@ -82,6 +82,16 @@ def test_no_forbidden_imports_ast():
     assert len(_port_files()) > 16
 
 
+def test_parallel_modules_are_checked():
+    """The multi-process modules are among the files and modules the
+    import checks walk."""
+    rel = {os.path.relpath(p, REPO) for p in _port_files()}
+    assert {"sasvqa_torch/parallel/mesh.py", "sasvqa_torch/parallel/tp.py",
+            "sasvqa_torch/tools/make_scale_store.py"} <= rel
+    assert {"sasvqa_torch.parallel.mesh", "sasvqa_torch.parallel.tp",
+            "sasvqa_torch.tools.make_scale_store"} <= set(_port_modules())
+
+
 def test_importing_every_module_loads_no_jax():
     code = (
         "import importlib, sys\n"

@@ -536,12 +536,14 @@ def test_platform_unset_needs_a_gpu(synth, tmp_path, monkeypatch):
     assert not (tmp_path / "out").exists()
 
 
-@pytest.mark.parametrize("override,match", [
-    ({"mesh_shape": [2]}, "more than one device"),
+@pytest.mark.parametrize("override,error,match", [
+    # a mesh must have one device a process: [2] in one process names
+    # the torchrun launch it needs
+    ({"mesh_shape": [2]}, ValueError, "torchrun --nproc_per_node 2"),
     ({"remat": True, "remat_policy": "save_only_these_names"},
-     "remat_policy"),
+     NotImplementedError, "remat_policy"),
 ])
-def test_unported_branches_raise(synth, tmp_path, override, match):
+def test_unported_branches_raise(synth, tmp_path, override, error, match):
     cfg = dict(_cfg(synth, tmp_path / "out"), **override)
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(error, match=match):
         trun.start_training(_args(cfg, tmp_path / "c.json"))

@@ -88,6 +88,39 @@ def test_synthetic_fixtures_equal_jax(kind, tmp_path):
         assert _bytes(mem[key]) == _bytes(want[key])
 
 
+@pytest.mark.parametrize("writer", ["h5", "memory"])
+def test_make_scale_store_equals_jax(writer, tmp_path):
+    """The scale store at a tiny size: the frame bytes, vidmapping and the
+    three QA files equal the JAX tool's, through HDF5 and in memory."""
+    from sasvqa_tpu.tools.make_scale_store import make_scale_store as jmake
+
+    from sasvqa_torch.tools import make_scale_store as tmss
+    kw = dict(num_videos=5, k=3, img_size=8, seed=3,
+              n_questions={"train": 7, "val": 4, "test": 5})
+    want = jmake(str(tmp_path / "jax"), **kw)
+    argv = ["--root", str(tmp_path / "port"), "--num_videos", "5", "--k",
+            "3", "--img_size", "8", "--seed", "3", "--train_q", "7",
+            "--val_q", "4", "--test_q", "5"]
+    if writer == "h5":
+        assert tmss.main(argv) == 0
+    else:
+        assert tmss.main(argv, writer=MemoryWriter) == 0
+    got = {k: str(tmp_path / "port" / os.path.basename(v))
+           for k, v in want.items()}
+    with h5py.File(want["h5"]) as a:
+        rows = np.asarray(a["sampled_frames"])
+    if writer == "h5":
+        with h5py.File(got["h5"]) as b:
+            assert np.asarray(b["sampled_frames"]).tobytes() == \
+                rows.tobytes()
+    else:
+        assert not os.path.exists(got["h5"])
+        assert MemoryWriter.stores[got["h5"]].tobytes() == rows.tobytes()
+    for key in ("vidmapping", "train", "val", "test"):
+        assert _bytes(got[key]) == _bytes(want[key]), key
+    assert len(json.loads(_bytes(got["train"]))) == 7
+
+
 def test_video_frames_equal_jax():
     for idx, n, hw, scenes in ((0, 9, 8, 3), (5, 4, 6, 1), (2, 30, 4, 5)):
         want = jsyn.make_video_frames(idx, n, hw, scenes)
@@ -131,7 +164,9 @@ def test_quickstart_git_runs_on_the_cpu(tmp_path):
 
 
 def test_quickstart_mesh_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="more than one device"):
+    """--mesh 2 needs two processes: in one it raises the loop's error,
+    which names the torchrun launch."""
+    with pytest.raises(ValueError, match="torchrun --nproc_per_node 2"):
         tqs.main(["--family", "clip", "--platform", "cpu", "--mesh", "2",
                   "--root", str(tmp_path)])
 
