@@ -74,7 +74,13 @@ its kernels:
   data route (gradient all-reduce) and on the FSDP2 route (``data
   fsdp`` [1, 1]): each update's loss held to the run without a group,
   the FSDP run's snapshot loaded into a fresh model, ms an update, peak
-  memory and the NCCL kernels' device time of each run.
+  memory and the NCCL kernels' device time of each run;
+- the production-shape integrated run before it (``integrated_run``:
+  ``tools/integrated_run.main`` on configs/msvd_qa_base.json, GIT-base
+  over the 6 frames a question of a K = 6 store built in host memory, S =
+  1214, so K1, K2 and K4; cut to 64 videos, 720 questions and 4 micros an
+  update; its report's keys, steps, eval counts, losses, snapshots and
+  steady window checked, its K1/K2 shapes held above).
 
 Every kernel row carries the kernel's device time from ``torch.profiler``
 beside CUDA events round its Python call (the backward rows: every
@@ -107,6 +113,7 @@ import torch.nn.functional as F
 
 from sasvqa_torch.data.dataset import (ClassifierCollator, GITCollator,
                                        pixel_dtype_for)
+from sasvqa_torch.data.frame_store import MemoryFrameStores
 from sasvqa_torch.data.pipeline import stack_microbatches
 from sasvqa_torch.data.tokenization import make_test_wordpiece
 from sasvqa_torch.models.git import (GITForCausalLM, git_attention_bias,
@@ -2579,24 +2586,6 @@ CLI = dict(model="microsoft/git-base-msrvtt-qa", nframe=6, img=224,
            question="what is the man doing in the kitchen", seed=11)
 
 
-class MemoryStoreWriter:
-    """FrameStoreWriter's interface over host memory (the card's
-    installation has no h5py)."""
-
-    def __init__(self, path, num_videos, num_frames, img_hw):
-        self.rows = np.zeros((num_videos, num_frames, 3 * img_hw * img_hw),
-                             np.float32)
-
-    def write(self, row, frames_chw):
-        self.rows[row] = frames_chw.reshape(self.rows.shape[1], -1)
-
-    def __enter__(self):
-        return self
-
-    def __exit__(self, *exc):
-        pass
-
-
 def _scene_video(n, spec, seed):
     """(n, S, S, 3) uint8: ``spec['scenes']`` scenes of a seeded colour
     field, each frame with one of 97 noise fields and one of 13
@@ -2629,7 +2618,7 @@ def phase_stage_a():
     writers = []
 
     def open_writer(*a):
-        writers.append(MemoryStoreWriter(*a))
+        writers.append(MemoryFrameStores().writer(*a))
         return writers[-1]
 
     with tempfile.TemporaryDirectory() as root:
@@ -3278,30 +3267,11 @@ def phase_profile_step():
     return row, launches, rec.shapes
 
 
-class MemoryStores:
-    """An in-memory writer (FrameStoreWriter's arguments and methods) that
-    keeps each store it writes, and the matching ``open_store``."""
-
-    def __init__(self):
-        self.rows = {}
-
-    def writer(self, path, num_videos, num_frames, img_hw):
-        w = MemoryStoreWriter(path, num_videos, num_frames, img_hw)
-        self.rows[path] = (w.rows, img_hw)
-        return w
-
-    def open_store(self, path):
-        rows, hw = self.rows[path]
-        n, k = rows.shape[:2]
-        return MemoryFrameStore(
-            rows.reshape(n, k, 3, hw, hw).transpose(0, 1, 3, 4, 2))
-
-
 def phase_quickstart():
     """``quickstart --family git`` on the card, its synthetic store built
     and read through the writer and store seams (no h5py there)."""
     from sasvqa_torch.tools import quickstart as qs
-    stores = MemoryStores()
+    stores = MemoryFrameStores()
     with tempfile.TemporaryDirectory() as root:
         _build.reset_launch_counts()
         t0 = time.perf_counter()
@@ -3496,11 +3466,125 @@ def phase_dist_task_loop():
     return row, launches, rec.shapes
 
 
+# the production-shape integrated run (tools/integrated_run.py) at full
+# width: configs/msvd_qa_base.json as shipped (GIT-base, dropout 0.1, the
+# uniform policy at stride 1 over a K = 6 store of 224x224 frames: 6
+# frames a question, S = 6 * 197 + 32 = 1214, so K1, K2 and K4; 6
+# questions a micro, validation batches of 16, prompts padded to 20, bf16
+# staging) cut in depth only: 64 videos, 4 micros an update instead of 72
+# (a global batch of 24), 720 train questions (one epoch of 30 updates:
+# step marks at 10, 20, 30, the in-loop validation at 20), 32 val and 32
+# test questions; save_steps_ratio keeps the full run's cadence of a
+# restore checkpoint every 17 updates (0.01 x 72 updates x 72 micros = 51
+# micros; an update's micro count 72 n is a multiple of 51 at every 17th
+# update; here 0.57 x 30 x 4 = 68 micros, every 17th update of 4)
+INTEGRATED = dict(num_videos=64, train_q=720, val_q=64, val_limit=32,
+                  steps=30, accum=4, save_steps_ratio=0.57)
+INTEGRATED_TRAIN_SHAPE = (6, 12, 6 * 197, 32, 64)
+INTEGRATED_EVAL_SHAPE = (16, 12, 6 * 197, 20, 64)
+
+
+def phase_integrated_run():
+    """``tools/integrated_run.main`` on the card, its store built and read
+    in host memory (``MemoryFrameStores``: no h5py there), over the
+    shipped config with INTEGRATED's cuts: every report key, finite
+    losses, the global step its epoch gives, val/test counts of
+    ``--val_limit``, snapshots and restore files written, a positive
+    steady window.  Also returns the (B, H, num_img, L, Dh) of every K1
+    and K2 call."""
+    import math
+
+    from sasvqa_torch.tools import integrated_run as ir
+    spec = INTEGRATED
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           ir.CONFIG)) as f:
+        cfg = json.load(f)
+    cuts = {"gradient_accumulation_steps": [
+        cfg["gradient_accumulation_steps"], spec["accum"]],
+        "save_steps_ratio": [cfg.get("save_steps_ratio", 0.01),
+                             spec["save_steps_ratio"]]}
+    cfg["gradient_accumulation_steps"] = spec["accum"]
+    cfg["save_steps_ratio"] = spec["save_steps_ratio"]
+    global_batch = cfg["train_batch_size"] * spec["accum"]
+    epochs = max(1, math.ceil(spec["steps"] * global_batch
+                              / spec["train_q"]))
+    updates = math.ceil(epochs * spec["train_q"] / global_batch)
+    stores = MemoryFrameStores()
+    real_config = ir.CONFIG
+    with tempfile.TemporaryDirectory() as root, GitFlashShapes() as rec:
+        ir.CONFIG = os.path.join(root, "msvd_qa_base.json")
+        with open(ir.CONFIG, "w") as f:
+            json.dump(cfg, f)
+        argv = ["--steps", str(spec["steps"]), "--root",
+                os.path.join(root, "store"), "--out",
+                os.path.join(root, "out"), "--num_videos",
+                str(spec["num_videos"]), "--train_q", str(spec["train_q"]),
+                "--val_q", str(spec["val_q"]), "--val_limit",
+                str(spec["val_limit"])]
+        _build.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        try:
+            report = ir.main(argv, writer=stores.writer,
+                             open_store=stores.open_store)
+        finally:
+            ir.CONFIG = real_config
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = dict(_build.launch_counts)
+        run = os.path.join(root, "out", "run")
+        with open(os.path.join(run, "log", "log.txt")) as f:
+            _, evals = ir.read_log(f)
+        with open(os.path.join(run, "log", "scalars.jsonl")) as f:
+            losses = [r["value"] for r in map(json.loads, f)
+                      if r["tag"] == "train/loss"]
+        ckpt = sorted(os.listdir(os.path.join(run, "ckpt")))
+        restore = sorted(os.listdir(os.path.join(run, "restore")))
+    keys = {"config", "global_steps", "global_batch_qa", "wall_s",
+            "train_loss", "steady_steps_per_s", "steady_qa_pairs_per_s",
+            "steady_ms_per_micro", "first_window_s"}
+    tags = ("valid", "test", "final_valid", "final_test")
+    keys |= {f"eval_{t}_{k}" for t in tags for k in ("s", "qa_per_s")}
+    row = {"phase": "integrated_run",
+           "model": "git-base video QA, seeded random weights, dropout on",
+           "config": "configs/msvd_qa_base.json", "argv": argv,
+           "cuts": dict(cuts, num_videos=[1970, spec["num_videos"]],
+                        train_q=[30933, spec["train_q"]],
+                        val_q=[6415, spec["val_q"]],
+                        val_limit=[0, spec["val_limit"]]),
+           "seq_len": 6 * 197 + 32,
+           "report": report, "phase_wall_s": wall_s, "losses": losses,
+           "evals": evals, "ckpt": ckpt, "restore": restore,
+           "max_memory_allocated_gb":
+               torch.cuda.max_memory_allocated() / 2 ** 30,
+           "launches": launches,
+           "git_flash_shapes": {p: sorted(v) for p, v in rec.shapes.items()}}
+    emit(row)
+    check(set(report) == keys, f"integrated run: report keys "
+          f"{sorted(report)}, want {sorted(keys)}")
+    check(report["global_steps"] == updates == len(losses)
+          and report["global_batch_qa"] == global_batch
+          and all(np.isfinite(losses + [report["train_loss"]])),
+          f"integrated run: not {updates} finite losses: {row}")
+    check([(t, n) for t, n, _ in evals]
+          == [(t, spec["val_limit"]) for t in tags],
+          f"integrated run: eval counts {evals}")
+    check(bool(ckpt) and bool(restore) and report["steady_steps_per_s"] > 0,
+          f"integrated run: snapshots {ckpt}, restore {restore}, report "
+          f"{report}")
+    check(all(launches[k] > 0 for k in
+              ("git_flash_fwd", _build.HASH_DROPOUT) + bwd_kernels()),
+          f"integrated run: a kernel of its route was not launched: "
+          f"{launches}")
+    return row, launches, rec.shapes
+
+
 PATHS = ("git_serve", "git_train", "blip_serve", "blip_train",
          "vitl16_grad_check", "task_loop", "clip_task_loop",
          "blip_task_loop", "mc_blip_task_loop", "mc_clip_task_loop",
          "stage_a", "stage_b", "predict", "serve_cli", "retrieval",
-         "remat_sweep", "profile_step", "quickstart", "dist_task_loop")
+         "remat_sweep", "profile_step", "quickstart", "integrated_run",
+         "dist_task_loop")
 KERNELS = ("git_flash_fwd", "git_flash_bwd", "git_flash_bwd_dq",
            "git_flash_bwd_dkv", _build.HASH_DROPOUT, "flash_fwd",
            "flash_bwd_dq", "flash_bwd_dkv")
@@ -3520,7 +3604,8 @@ def main() -> int:
     kernel_shapes = [(b, 12, fr * tpf, SLICE["max_txt_len"], 64),
                      (2, 12, 3 * tpf, 13, 64),
                      (1, 12, cli_img, predict_prompt_len(), 64),
-                     (CLI["batch_size"], 12, cli_img, CLI["max_txt_len"], 64)]
+                     (CLI["batch_size"], 12, cli_img, CLI["max_txt_len"], 64),
+                     INTEGRATED_EVAL_SHAPE]
     kernel_rows = phase_kernel(kernel_shapes)
     rate = _git_config("git-base").attention_dropout
     # the training shape, a ragged 3-frame one, and the remat sweep's
@@ -3531,7 +3616,7 @@ def main() -> int:
                     (NO_REMAT_BATCH, 12, pc.VITL16.num_img,
                      pc.VITL16.text_len, 64),
                     (dist["train_batch_size"], 12, dist["nframe"] * tpf,
-                     dist["max_seq_len"], 64)]
+                     dist["max_seq_len"], 64), INTEGRATED_TRAIN_SHAPE]
     train_rows = phase_train_kernels(train_shapes, rate)
     btok = 577
     flash_cases = {
@@ -3583,6 +3668,7 @@ def main() -> int:
     _, remat_sweep, sweep_shapes = phase_remat_sweep()
     _, profile_step, profile_shapes = phase_profile_step()
     _, quickstart = phase_quickstart()
+    _, integrated, integrated_shapes = phase_integrated_run()
     # last: the only phase under a process group
     _, dist_task, dist_shapes = phase_dist_task_loop()
     # device-time windows taken, profiler steps taken again, lead records lost
@@ -3594,7 +3680,7 @@ def main() -> int:
                                        blip_task, mc_blip, mc_clip, stage_a,
                                        stage_b, predict, serve_cli,
                                        retrieval, remat_sweep, profile_step,
-                                       quickstart, dist_task))))
+                                       quickstart, integrated, dist_task))))
                for name in KERNELS}
     needed = {"git_serve": ("git_flash_fwd",),
               "git_train": ("git_flash_fwd", _build.HASH_DROPOUT)
@@ -3627,6 +3713,8 @@ def main() -> int:
               + bwd_kernels(),
               # tiny-git at 2 frames of 32x32: S far below 512
               "quickstart": (),
+              "integrated_run": ("git_flash_fwd", _build.HASH_DROPOUT)
+              + bwd_kernels(),
               "dist_task_loop": ("git_flash_fwd", _build.HASH_DROPOUT)
               + bwd_kernels()}
     check(all(by_path[k][path] > 0 for path, ks in needed.items()
@@ -3651,7 +3739,8 @@ def main() -> int:
             "bwd": set(train_shapes) | split_held}
     for name, shapes in (("remat sweep", sweep_shapes),
                          ("profile_step", profile_shapes),
-                         ("dist task loop", dist_shapes)):
+                         ("dist task loop", dist_shapes),
+                         ("integrated run", integrated_shapes)):
         check(all(shapes[p] and shapes[p] <= held[p] for p in held),
               f"{name}: a K1/K2 shape was not held against its plain "
               f"version: {shapes}, held {held}")

@@ -126,6 +126,25 @@ class RunningMeter:
         return self._val if self._val is not None else 0.0
 
 
+class AverageMeter:
+    """Running average (reference: src/utils/basic_utils.py:125-150)."""
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self):
+        self.val = 0.0
+        self.avg = 0.0
+        self.sum = 0.0
+        self.count = 0
+
+    def update(self, val: float, n: int = 1):
+        self.val = val
+        self.sum += val * n
+        self.count += n
+        self.avg = self.sum / max(self.count, 1)
+
+
 class NoOp:
     """Swallow any call — for non-primary hosts (reference: src/utils/misc.py:26-31)."""
 

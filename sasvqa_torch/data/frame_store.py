@@ -11,7 +11,9 @@ converts CHW -> HWC on the host: the models take NHWC pixels.
 ``h5py`` is imported only where a store is opened (:func:`_open_h5`), so
 importing this module needs no h5py.  Without h5py, frames reach the task
 loop through any object with :class:`FrameStoreReader`'s methods
-(``shape`` and ``read_frames_nhwc``), passed as ``open_store``.
+(``shape`` and ``read_frames_nhwc``), passed as ``open_store``;
+:class:`MemoryFrameStores` is such a pair of writer and reader over host
+memory.
 """
 
 from __future__ import annotations
@@ -104,6 +106,53 @@ class FrameStoreReader:
         if self._f is not None:
             self._f.close()
             self._f = None
+
+
+class MemoryFrameStores:
+    """Frame stores in host memory, for a machine without h5py.
+    :meth:`writer` takes :class:`FrameStoreWriter`'s arguments and keeps
+    the rows it is given under the store's path (nothing is written to
+    disk); :meth:`open_store` reads a kept store back with
+    :class:`FrameStoreReader`'s methods and values."""
+
+    def __init__(self):
+        self.rows: Dict[str, np.ndarray] = {}
+
+    def writer(self, h5_path: str, num_videos: int, num_frames: int,
+               img_hw: int) -> "_MemoryWriter":
+        rows = np.zeros((num_videos, num_frames, 3 * img_hw * img_hw),
+                        np.float32)
+        self.rows[h5_path] = rows
+        return _MemoryWriter(rows)
+
+    def open_store(self, h5_path: str) -> "_MemoryReader":
+        return _MemoryReader(self.rows[h5_path])
+
+
+class _MemoryWriter:
+    def __init__(self, rows: np.ndarray):
+        self.rows = rows
+
+    def write(self, row: int, frames_chw: np.ndarray) -> None:
+        self.rows[row] = frames_chw.reshape(self.rows.shape[1], -1)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        pass
+
+
+class _MemoryReader:
+    def __init__(self, rows: np.ndarray):
+        self.rows = rows
+        self.shape = rows.shape
+
+    def read_frames_nhwc(self, row: int, frame_inds) -> np.ndarray:
+        inds = np.asarray(frame_inds, dtype=np.int64).reshape(-1)
+        hw = int(round((self.shape[2] // 3) ** 0.5))
+        return np.ascontiguousarray(self.rows[row, inds].reshape(
+            len(inds), 3, hw, hw).transpose(0, 2, 3, 1))
 
 
 class LazyVideoFrames:

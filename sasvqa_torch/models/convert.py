@@ -5,8 +5,9 @@ arrays under the JAX package's module names):
 
 - HF PyTorch state dict -> Flax layout: ``convert_clip_text``,
   ``convert_clip_vision``, ``convert_git``, ``convert_blip_vision``,
-  ``convert_blip_text``, ``convert_clip_video_qa`` (copies of the JAX
-  package's converters);
+  ``convert_blip_text``, ``convert_clip_video_qa``, and the reference's
+  whole finetuned classifiers ``convert_clip_classifier`` /
+  ``convert_blip_classifier`` (copies of the JAX package's converters);
 - Flax layout -> the port's modules: :func:`state_dict_from_flax` (a whole
   tree, strict) and :func:`merge_pretrained` (an overlay onto a built
   model that keeps what the checkpoint lacks or gets wrong, and reports
@@ -383,4 +384,92 @@ def convert_clip_video_qa(sd: Mapping[str, Any], num_text_layers: int,
     return {
         "txt_model": convert_clip_text(sd, num_text_layers),
         "vis_model": convert_clip_vision(sd, num_vision_layers),
+    }
+
+
+# ---------------------------------------------------------------------------
+# torch.nn fusion-head layers (the reference's CrossAttentionLayer is built
+# from torch.nn.TransformerDecoder, modeling.py:366-374)
+
+
+def _torch_mha(sd, prefix):
+    """torch.nn.MultiheadAttention (packed ``in_proj``) -> the
+    MultiHeadAttention {q,k,v,out}_proj params."""
+    w = _np(sd[f"{prefix}.in_proj_weight"])    # (3D, D)
+    b = _np(sd[f"{prefix}.in_proj_bias"])
+    d = w.shape[1]
+
+    def part(i):
+        return {"kernel": w[i * d:(i + 1) * d].T,
+                "bias": b[i * d:(i + 1) * d]}
+
+    return {"q_proj": part(0), "k_proj": part(1), "v_proj": part(2),
+            "out_proj": _lin(sd, f"{prefix}.out_proj")}
+
+
+def _torch_decoder_layer(sd, p):
+    """torch.nn.TransformerDecoderLayer -> fusion.TransformerDecoderLayer."""
+    return {
+        "self_attn": _torch_mha(sd, f"{p}.self_attn"),
+        "cross_attn": _torch_mha(sd, f"{p}.multihead_attn"),
+        "linear1": _lin(sd, f"{p}.linear1"),
+        "linear2": _lin(sd, f"{p}.linear2"),
+        "norm1": _ln(sd, f"{p}.norm1"),
+        "norm2": _ln(sd, f"{p}.norm2"),
+        "norm3": _ln(sd, f"{p}.norm3"),
+    }
+
+
+def _unwrap(sd: Mapping[str, Any]) -> Mapping[str, Any]:
+    """A ``CLIPModelforFinetune`` dict (the ``VLModel.`` wrapper prefix,
+    the reference's clip_model.py:9-13) -> its inner model's keys."""
+    if any(k.startswith("VLModel.") for k in sd):
+        return {k[len("VLModel."):]: v for k, v in sd.items()
+                if k.startswith("VLModel.")}
+    return sd
+
+
+def _answer_head(sd, n_fusion_layers):
+    return {"attention": {f"layers_{i}": _torch_decoder_layer(
+                sd, f"attention.attention.layers.{i}")
+                for i in range(n_fusion_layers)},
+            "classifier": _lin(sd, "classifier")}
+
+
+def convert_clip_classifier(sd: Mapping[str, Any], num_text_layers: int,
+                            num_vision_layers: int,
+                            n_fusion_layers: int = 1) -> Dict[str, Any]:
+    """Reference ``CLIPForSeqClassification`` state dict (its
+    src/modeling/modeling.py:393-448) -> ``CLIPVideoQA`` params: the whole
+    finetuned model (CLIP text and vision towers, the dec-only
+    CrossAttentionLayer, a torch TransformerDecoder, and the linear answer
+    classifier), so a reference-finetuned classifier checkpoint loads
+    through :func:`merge_pretrained`.  ``VLModel.``-prefixed dicts are
+    accepted too."""
+    sd = _unwrap(sd)
+    return {
+        "txt_model": convert_clip_text(
+            sd, num_text_layers, prefix="vlm.txt_model.text_model"),
+        "vis_model": convert_clip_vision(
+            sd, num_vision_layers, prefix="vlm.vis_model.vision_model",
+            projection_key="vlm.vis_model.visual_projection"),
+        "answer_head": _answer_head(sd, n_fusion_layers),
+    }
+
+
+def convert_blip_classifier(sd: Mapping[str, Any], num_text_layers: int,
+                            num_vision_layers: int,
+                            n_fusion_layers: int = 1) -> Dict[str, Any]:
+    """Reference BLIP-family ``CLIPForSeqClassification`` state dict
+    (modeling.py:393-411 over ``BLIPBaseModel``, :299-315) ->
+    ``BLIPVideoQA`` params: the BLIP vision tower, the cross-attending
+    BLIP text encoder, the dec-only CrossAttentionLayer and the linear
+    answer classifier.  ``VLModel.``-prefixed dicts are accepted too."""
+    sd = _unwrap(sd)
+    return {
+        "txt_model": convert_blip_text(sd, num_text_layers,
+                                       prefix="vlm.txt_model"),
+        "vis_model": convert_blip_vision(sd, num_vision_layers,
+                                         prefix="vlm.vis_model"),
+        "answer_head": _answer_head(sd, n_fusion_layers),
     }
