@@ -1,0 +1,10 @@
+"""1 - (union of the device's activity intervals / wall) over the
+profiled update, in percent."""
+
+
+def read(record):
+    p = record.get("profiled")
+    if record.get("kind") != "train" or p is None:
+        return None
+    s = p["summary"]
+    return 100.0 * (1.0 - s["busy_s"] / s["window_s"])
