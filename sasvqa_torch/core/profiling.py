@@ -1,119 +1,182 @@
-"""Timing and tracing helpers (counterpart of sasvqa_tpu/core/profiling.py).
+"""Spans: named host intervals of the program, on the profiler's clock.
 
-- ``Timer``: tic/toc wall-clock averaging, with the API of the
-  reference's never-called Timer (preprocessing/datautils/utils.py:
-  118-140);
-- ``StepTimer``: per-stage wall-clock meters with percentiles;
-- ``annotate`` / ``trace``: a named range in a ``torch.profiler`` trace,
-  and a profile of a block written as a Chrome trace;
-- ``synced``: waits for the GPU work that produces a tensor, so that a
-  host clock read after it times the work and not its enqueue.
+The program marks its phases with :func:`span` (a context manager for a
+span that begins and ends on one thread) and :func:`begin` /
+:func:`end` (a span that crosses threads, such as a request's wait in a
+queue).  A span is recorded only while a ``torch.profiler`` session is
+active, so that it always shares a window with a device trace; with no
+profiler running a site costs its call and one read of a global, and
+makes no record and reads no clock.
+
+Each record (:class:`Span`) holds its name, its start and end in ns on
+the profiler's clock (``time.perf_counter_ns`` plus an offset to the
+epoch time the profiler's events carry, taken when the session's first
+span is recorded), its own id, the id of its parent (the span open on
+the same thread for :func:`span`; the ``parent=`` handle given to
+:func:`begin`), the thread's id, its ``key`` (a root span's own id,
+else its parent's: the id of the request or batch that the root span
+is, shared by the spans under it) and its other attributes.
+
+The first span recorded after a profiler starts begins a new session
+and drops the spans of the one before; :func:`spans` returns the newest
+session's finished spans.  A :func:`span` also opens a
+``torch.profiler.record_function`` range of its name, so that a
+profiler's trace (``--profile_steps``'s Chrome trace among them) shows
+the program's phases beside its kernels; the profiler records such a
+range only on the thread that started it.
 """
 
 from __future__ import annotations
 
 import contextlib
-import os
+import itertools
+import threading
 import time
-from collections import defaultdict
-from typing import Any, Dict, Iterator, Optional
+from typing import Any, Dict, List, Optional
 
-import numpy as np
-import torch
-
-
-class Timer:
-    """tic/toc averaging timer."""
-
-    def __init__(self):
-        self.total_time = 0.0
-        self.calls = 0
-        self.start_time = 0.0
-        self.diff = 0.0
-        self.average_time = 0.0
-
-    def tic(self):
-        self.start_time = time.time()
-
-    def toc(self, average: bool = True) -> float:
-        self.diff = time.time() - self.start_time
-        self.total_time += self.diff
-        self.calls += 1
-        self.average_time = self.total_time / self.calls
-        return self.average_time if average else self.diff
+from torch._C._profiler import _RecordFunctionFast
+from torch.autograd import profiler as _prof
 
 
-def _tensors(x: Any) -> Iterator[torch.Tensor]:
-    if isinstance(x, torch.Tensor):
-        yield x
-    elif isinstance(x, dict):
-        for v in x.values():
-            yield from _tensors(v)
-    elif isinstance(x, (list, tuple)):
-        for v in x:
-            yield from _tensors(v)
+class Span:
+    """One span; ``end`` is None until it ends."""
+
+    __slots__ = ("name", "start", "end", "id", "parent", "thread", "key",
+                 "attrs", "_session")
+
+    def __init__(self, name: str, start: int, span_id: int,
+                 parent: Optional["Span"], attrs: Dict[str, Any],
+                 session: "_Session"):
+        self.name = name
+        self.start = start
+        self.end: Optional[int] = None
+        self.id = span_id
+        self.parent = None if parent is None else parent.id
+        self.thread = threading.get_ident()
+        self.key = span_id if parent is None else parent.key
+        self.attrs = attrs
+        self._session = session
 
 
-def synced(x: Any) -> Any:
-    """Synchronize every CUDA device that holds a tensor of ``x`` (a
-    tensor, or a dict / list / tuple of them); CPU tensors and other
-    values pass as they are.  Returns ``x``."""
-    for dev in {t.device for t in _tensors(x) if t.device.type == "cuda"}:
-        torch.cuda.synchronize(dev)
-    return x
+class _Session:
+    __slots__ = ("starts", "offset", "spans")
+
+    def __init__(self, starts: int):
+        self.starts = starts
+        a = time.perf_counter_ns()
+        epoch = time.time_ns()
+        b = time.perf_counter_ns()
+        self.offset = epoch - (a + b) // 2
+        self.spans: List[Span] = []
 
 
-class StepTimer:
-    """Per-stage wall-clock meters: use ``with step_timer.stage("data"):``.
-
-    ``summary()`` -> {stage: {mean_ms, p50_ms, p95_ms, count}}.
-    """
-
-    def __init__(self, max_samples: int = 1000):
-        self._samples: Dict[str, list] = defaultdict(list)
-        self._max = max_samples
-
-    @contextlib.contextmanager
-    def stage(self, name: str) -> Iterator[None]:
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            samples = self._samples[name]
-            samples.append(time.perf_counter() - t0)
-            if len(samples) > self._max:
-                del samples[: len(samples) - self._max]
-
-    def summary(self) -> Dict[str, Dict[str, float]]:
-        out = {}
-        for name, samples in self._samples.items():
-            arr = np.asarray(samples) * 1e3
-            out[name] = dict(mean_ms=float(arr.mean()),
-                             p50_ms=float(np.percentile(arr, 50)),
-                             p95_ms=float(np.percentile(arr, 95)),
-                             count=len(arr))
-        return out
+# profiler starts seen; a span compares it with its session's
+_starts = 0
+_session = _Session(-1)
+_lock = threading.Lock()
+_ids = itertools.count(1)
+_tls = threading.local()
 
 
-@contextlib.contextmanager
-def annotate(name: str) -> Iterator[None]:
-    """A named range in the ``torch.profiler`` trace."""
-    with torch.profiler.record_function(name):
-        yield
+def _count_start(start):
+    def run_on_profiler_start():
+        global _starts
+        _starts += 1
+        start()
+    run_on_profiler_start.counts_starts = True
+    return run_on_profiler_start
 
 
-@contextlib.contextmanager
-def trace(log_dir: Optional[str]) -> Iterator[None]:
-    """Profile the block (CPU, and CUDA where a GPU is visible) and write
-    ``log_dir``/trace.json, a Chrome trace; no-op if ``log_dir`` is
-    None."""
-    if not log_dir:
-        yield
+# torch's profilers call this module-level hook (by its global name) as
+# they start; wrapped once, it counts the sessions
+if not getattr(_prof._run_on_profiler_start, "counts_starts", False):
+    _prof._run_on_profiler_start = _count_start(_prof._run_on_profiler_start)
+
+
+def _current() -> _Session:
+    global _session
+    if _session.starts != _starts:
+        with _lock:
+            if _session.starts != _starts:
+                _session = _Session(_starts)
+    return _session
+
+
+def _stack() -> List[Span]:
+    stack = getattr(_tls, "stack", None)
+    if stack is None:
+        stack = _tls.stack = []
+    return stack
+
+
+def _open(name: str, parent: Optional[Span], attrs: Dict[str, Any]
+          ) -> Span:
+    s = _current()
+    return Span(name, time.perf_counter_ns() + s.offset, next(_ids), parent,
+                attrs, s)
+
+
+def _close(sp: Span) -> None:
+    s = sp._session
+    sp.end = time.perf_counter_ns() + s.offset
+    if _prof._is_profiler_enabled and s is _session:
+        s.spans.append(sp)
+
+
+# what span() returns with no profiler running
+_NULL = contextlib.nullcontext()
+
+
+class _Scoped:
+    __slots__ = ("name", "attrs", "sp", "rf")
+
+    def __init__(self, name: str, attrs: Dict[str, Any]):
+        self.name, self.attrs = name, attrs
+
+    def __enter__(self) -> Span:
+        stack = _stack()
+        self.sp = sp = _open(self.name, stack[-1] if stack else None,
+                             self.attrs)
+        stack.append(sp)
+        self.rf = _RecordFunctionFast(self.name)
+        self.rf.__enter__()
+        return sp
+
+    def __exit__(self, *exc) -> bool:
+        self.rf.__exit__(*exc)
+        stack = _stack()
+        if stack and stack[-1] is self.sp:
+            stack.pop()
+        _close(self.sp)
+        return False
+
+
+def span(name: str, **attrs: Any):
+    """``with span("train.forward", micro=i): ...``: a span of the block
+    on this thread, the child of the span open around it (``as`` gives
+    the :class:`Span`, or None with no profiler running)."""
+    if not _prof._is_profiler_enabled:
+        return _NULL
+    return _Scoped(name, attrs)
+
+
+def begin(name: str, parent: Optional[Span] = None,
+          **attrs: Any) -> Optional[Span]:
+    """A span that :func:`end` ends, on any thread; its parent is
+    ``parent`` (a handle), or none.  None with no profiler running."""
+    if not _prof._is_profiler_enabled:
+        return None
+    return _open(name, parent, attrs)
+
+
+def end(handle: Optional[Span], **attrs: Any) -> None:
+    """End a :func:`begin` span, adding ``attrs`` to its attributes."""
+    if handle is None:
         return
-    activities = [torch.profiler.ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(torch.profiler.ProfilerActivity.CUDA)
-    os.makedirs(log_dir, exist_ok=True)
-    with torch.profiler.profile(activities=activities) as prof:
-        yield
-    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+    handle.attrs.update(attrs)
+    _close(handle)
+
+
+def spans() -> List[Span]:
+    """The newest session's finished spans, in the order they ended."""
+    return list(_session.spans)

@@ -24,6 +24,7 @@ import torch
 from sasvqa_torch.core.device import DeviceLike, resolve_device
 from sasvqa_torch.core.logging import LOGGER
 from sasvqa_torch.core.pixels import host_tensor
+from sasvqa_torch.core.profiling import span
 
 # batch keys that stay host-side lists (per-example ids, group sizes)
 HOST_KEYS = ("question_ids", "n_examples_list")
@@ -75,8 +76,9 @@ def eval_batch_plan(n: int, global_bs: int):
 
 
 def collate_indices(dataset, collator, idx, rng) -> Dict[str, Any]:
-    items = [dataset.get_group(int(i)) for i in idx]
-    return collator(items, rng=rng)
+    with span("input.collate"):
+        items = [dataset.get_group(int(i)) for i in idx]
+        return collator(items, rng=rng)
 
 
 # -- collation in worker processes (``n_workers`` > 0; the reference's

@@ -33,6 +33,7 @@ from torch import nn
 
 from sasvqa_torch.core.device import DeviceLike, resolve_device
 from sasvqa_torch.core.pixels import host_tensor, maybe_dequantize
+from sasvqa_torch.core.profiling import span
 from sasvqa_torch.models.clip import CLIPVisionConfig, CLIPVisionEncoder
 from sasvqa_torch.models.layers import (BertFFN, Dense, Dropout, Embed,
                                         LayerNorm, init_params, merge_heads,
@@ -441,30 +442,33 @@ def greedy_generate(model: GITForCausalLM, input_ids, prompt_len,
     max_new = max_text_len - 1 if max_new_tokens is None else max_new_tokens
     if max_new < 1:
         raise ValueError(f"max_new_tokens must be >= 1, got {max_new}")
-    input_ids = _on_device(input_ids, dev, torch.long)
-    prompt_len = _on_device(prompt_len, dev, torch.long)
-    pixel_values = _on_device(pixel_values, dev)
-
-    logits, cache = model.prompt_fill(input_ids, prompt_len, pixel_values,
-                                      max_text_len)
-    first = logits.argmax(dim=-1)
-    over0 = prompt_len >= max_text_len         # no room for any new token
-    # batch-padding rows (prompt_len == 0) are born done
-    done = (first == eos) | over0 | (prompt_len == 0)
-    tok = torch.where(done, torch.full_like(first, pad), first)
-    buf = torch.full((input_ids.shape[0], max_new), pad, dtype=torch.long,
-                     device=dev)
-    buf[:, 0] = tok
+    with span("model.prompt_fill"):
+        input_ids = _on_device(input_ids, dev, torch.long)
+        prompt_len = _on_device(prompt_len, dev, torch.long)
+        pixel_values = _on_device(pixel_values, dev)
+        logits, cache = model.prompt_fill(input_ids, prompt_len,
+                                          pixel_values, max_text_len)
+        first = logits.argmax(dim=-1)
+        over0 = prompt_len >= max_text_len     # no room for any new token
+        # batch-padding rows (prompt_len == 0) are born done
+        done = (first == eos) | over0 | (prompt_len == 0)
+        tok = torch.where(done, torch.full_like(first, pad), first)
+        buf = torch.full((input_ids.shape[0], max_new), pad,
+                         dtype=torch.long, device=dev)
+        buf[:, 0] = tok
     for i in range(1, max_new):
-        if all_done(done) if all_done is not None else bool(done.all()):
-            break
-        logits, cache = model.decode_step(tok, cache)
-        nxt = logits.argmax(dim=-1)
-        # position of nxt in the text sequence == the updated cur_len
-        over = cache["cur_len"] >= max_text_len
-        nxt = torch.where(done | over, torch.full_like(nxt, pad), nxt)
-        done = done | over | (nxt == eos)
-        nxt = torch.where(nxt == eos, torch.full_like(nxt, pad), nxt)
-        buf[:, i] = nxt
-        tok = nxt
+        # a step's span opens with the read of the flag, which waits for
+        # the step before it
+        with span("model.decode_step"):
+            if all_done(done) if all_done is not None else bool(done.all()):
+                break
+            logits, cache = model.decode_step(tok, cache)
+            nxt = logits.argmax(dim=-1)
+            # position of nxt in the text sequence == the updated cur_len
+            over = cache["cur_len"] >= max_text_len
+            nxt = torch.where(done | over, torch.full_like(nxt, pad), nxt)
+            done = done | over | (nxt == eos)
+            nxt = torch.where(nxt == eos, torch.full_like(nxt, pad), nxt)
+            buf[:, i] = nxt
+            tok = nxt
     return buf

@@ -43,6 +43,7 @@ import torch
 
 from sasvqa_torch.core.device import DeviceLike, resolve_device
 from sasvqa_torch.core.logging import LOGGER
+from sasvqa_torch.core.profiling import Span, begin, end, span
 from sasvqa_torch.data.dataset import ClassifierCollator, GITCollator
 from sasvqa_torch.tasks.predict import load_frames, load_model
 from sasvqa_torch.tasks.run_video_qa import decode_answers
@@ -130,7 +131,8 @@ class QAEngine:
                     f"engine's pinned shape {self._frame_shape}; requests "
                     "in one engine must share (stored K, H, W, 3)")
             fut: Future = Future()
-            self._queue.put((frames, str(question), fut))
+            self._queue.put((frames, str(question), fut,
+                             begin("engine.queue")))
         return fut
 
     def answer(self, frames: np.ndarray, question: str,
@@ -154,13 +156,18 @@ class QAEngine:
         self.close()
 
     # ------------------------------------------------------------------
-    def _drain_batch(self) -> Optional[List[tuple]]:
+    def _drain_batch(self, batch: Optional[Span] = None
+                     ) -> Optional[List[tuple]]:
         """Block for one request, then linger for more (up to
-        batch_size).  None = shutdown sentinel seen."""
+        batch_size).  None = shutdown sentinel seen.  Each request's
+        queue span ends as it is taken, with the key of the ``batch``
+        span that runs it."""
         first = self._queue.get()
         if first is None:
             return None
-        reqs = [first]
+        batch_key = None if batch is None else batch.key
+        end(first[3], batch=batch_key)
+        reqs = [first[:3]]
         deadline = time.monotonic() + self.linger_s
         while len(reqs) < self.batch_size:
             remaining = deadline - time.monotonic()
@@ -174,7 +181,8 @@ class QAEngine:
                 # keep shutting down after this batch completes
                 self._queue.put(None)
                 break
-            reqs.append(nxt)
+            end(nxt[3], batch=batch_key)
+            reqs.append(nxt[:3])
         return reqs
 
     def _dispatch_loop(self):
@@ -182,19 +190,23 @@ class QAEngine:
         # this thread, so it enters inference mode itself
         with torch.inference_mode():
             while True:
-                reqs = self._drain_batch()
-                if reqs is None:
-                    self._fail_stragglers()
-                    return
-                try:
-                    results = self._run_batch(reqs)
-                    for (_, _, fut), res in zip(reqs, results):
-                        fut.set_result(res)
-                except Exception as e:  # resolve futures, keep serving
-                    LOGGER.exception("serving batch failed")
-                    for _, _, fut in reqs:
-                        if not fut.done():
-                            fut.set_exception(e)
+                with span("engine.batch") as batch:
+                    with span("engine.drain"):
+                        reqs = self._drain_batch(batch)
+                    if reqs is None:
+                        self._fail_stragglers()
+                        return
+                    try:
+                        results = self._run_batch(reqs)
+                        # set_result runs the futures' done-callbacks
+                        with span("engine.respond"):
+                            for (_, _, fut), res in zip(reqs, results):
+                                fut.set_result(res)
+                    except Exception as e:  # resolve futures, keep serving
+                        LOGGER.exception("serving batch failed")
+                        for _, _, fut in reqs:
+                            if not fut.done():
+                                fut.set_exception(e)
 
     def _fail_stragglers(self):
         """Requests still queued after the shutdown sentinel can never
@@ -211,23 +223,31 @@ class QAEngine:
 
     def _run_batch(self, reqs: List[tuple]) -> List[Dict[str, Any]]:
         n_real = len(reqs)
-        items = [{"vid": frames,
-                  "examples": [{"q_str": question, "label": None,
-                                "str_label": None, "question_id": i}],
-                  "n_examples": 1}
-                 for i, (frames, question, _) in enumerate(reqs)]
-        # fixed batch shape: repeat the last request into the tail
-        items += [items[-1]] * (self.batch_size - n_real)
-        batch = self._collator(items, rng=np.random.default_rng(0))
+        with span("engine.collate"):
+            items = [{"vid": frames,
+                      "examples": [{"q_str": question, "label": None,
+                                    "str_label": None, "question_id": i}],
+                      "n_examples": 1}
+                     for i, (frames, question, _) in enumerate(reqs)]
+            # fixed batch shape: repeat the last request into the tail
+            items += [items[-1]] * (self.batch_size - n_real)
+            batch = self._collator(items, rng=np.random.default_rng(0))
+        with span("engine.generate"):
+            out = self._eval_step(batch)
         if self.family == "git":
-            generated = self._eval_step(batch).cpu().numpy()
-            preds, strs = decode_answers(self.tokenizer, generated[:n_real],
-                                         self.ans2label)
-            out = [{"answer": s, "label": p} for s, p in zip(strs, preds)]
+            with span("engine.fetch"):
+                generated = out.cpu().numpy()
+            with span("engine.respond"):
+                preds, strs = decode_answers(
+                    self.tokenizer, generated[:n_real], self.ans2label)
+                out = [{"answer": s, "label": p}
+                       for s, p in zip(strs, preds)]
         else:
-            preds, _ = self._eval_step(batch)
-            out = [{"answer": self.label2ans.get(int(p), ""),
-                    "label": int(p)} for p in preds[:n_real].tolist()]
+            with span("engine.fetch"):
+                preds = out[0][:n_real].tolist()
+            with span("engine.respond"):
+                out = [{"answer": self.label2ans.get(int(p), ""),
+                        "label": int(p)} for p in preds]
         self.stats["requests"] += n_real
         self.stats["batches"] += 1
         self.stats["batch_rows"] += self.batch_size

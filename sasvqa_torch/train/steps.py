@@ -53,6 +53,7 @@ from torch.distributed.tensor import DTensor, Partial, Replicate
 from sasvqa_torch.core.device import DeviceLike, resolve_device
 from sasvqa_torch.core.logging import LOGGER
 from sasvqa_torch.core.pixels import host_tensor
+from sasvqa_torch.core.profiling import span
 from sasvqa_torch.models.convert import flax_param_names
 from sasvqa_torch.models.git import greedy_generate
 from sasvqa_torch.parallel.mesh import (ParallelPlan, full, is_dtensor,
@@ -492,37 +493,41 @@ def _accumulate_and_update(state: TrainState,
     acc: List[torch.Tensor] = []
     losses, counts = [], []
     for i, mb in enumerate(micros):
-        micro_seed = fold_in(seed, state.step + i)
-        if plan is not None and plan.dp_size > 1:
-            micro_seed = fold_in(micro_seed, plan.dp_index)
-        gen = torch.Generator(device=dev).manual_seed(micro_seed)
-        for p in params:
-            p.grad = None
-        loss, metrics = loss_fn(state.model, mb, gen, dev)
-        n_targets = metrics.pop("n_targets")
-        if plan is not None:
-            # the global batch's loss: the local mean weighted by this
-            # rank's share of the micro's targets, summed over the ranks
-            total = plan.all_reduce(n_targets.clone())
-            loss = loss * (n_targets / total.clamp(min=1))
-        loss.backward()
-        if plan is not None:
-            plan.reduce_grads(params)
-        losses.append(loss.detach())
-        counts.append(metrics)
-        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
-                 for p in params]
-        if i == 0:          # 0 + (g - 0) / 1 and 0 + g are g exactly
-            acc = grads
-        elif grad_mean:     # Welford running mean, as optax.MultiSteps
-            for a, g in zip(acc, grads):
-                a.add_((g - a) / (i + 1))
-        else:               # the reference's sum over the window
-            for a, g in zip(acc, grads):
-                a.add_(g)
-    for p, a in zip(params, acc):
-        p.grad = a
-    gnorm = state.optimizer.update(acc)
+        with span("train.forward", micro=i):
+            micro_seed = fold_in(seed, state.step + i)
+            if plan is not None and plan.dp_size > 1:
+                micro_seed = fold_in(micro_seed, plan.dp_index)
+            gen = torch.Generator(device=dev).manual_seed(micro_seed)
+            for p in params:
+                p.grad = None
+            loss, metrics = loss_fn(state.model, mb, gen, dev)
+            n_targets = metrics.pop("n_targets")
+            if plan is not None:
+                # the global batch's loss: the local mean weighted by this
+                # rank's share of the micro's targets, summed over the ranks
+                total = plan.all_reduce(n_targets.clone())
+                loss = loss * (n_targets / total.clamp(min=1))
+        with span("train.backward", micro=i):
+            loss.backward()
+            if plan is not None:
+                plan.reduce_grads(params)
+        with span("train.accumulate", micro=i):
+            losses.append(loss.detach())
+            counts.append(metrics)
+            grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+                     for p in params]
+            if i == 0:          # 0 + (g - 0) / 1 and 0 + g are g exactly
+                acc = grads
+            elif grad_mean:     # Welford running mean, as optax.MultiSteps
+                for a, g in zip(acc, grads):
+                    a.add_((g - a) / (i + 1))
+            else:               # the reference's sum over the window
+                for a, g in zip(acc, grads):
+                    a.add_(g)
+    with span("train.optimizer"):
+        for p, a in zip(params, acc):
+            p.grad = a
+        gnorm = state.optimizer.update(acc)
     state.step += len(micros)
     sums = {"loss": torch.stack(losses).mean()}
     for key in counts[0]:
@@ -611,11 +616,12 @@ def make_scan_train_step(k_micro: int, family: str = "git",
     dev = resolve_device(device)
 
     def step(state: TrainState, batch: Dict[str, Any], seed: int):
-        micros = [{key: batch[key][i] for key in
-                   ("text_input_ids", "text_attention_mask",
-                    "visual_inputs", "labels")} for i in range(k_micro)]
-        return _accumulate_and_update(state, micros, seed, grad_mean, dev,
-                                      loss_fn)
+        with span("train.update"):
+            micros = [{key: batch[key][i] for key in
+                       ("text_input_ids", "text_attention_mask",
+                        "visual_inputs", "labels")} for i in range(k_micro)]
+            return _accumulate_and_update(state, micros, seed, grad_mean,
+                                          dev, loss_fn)
 
     return step
 

@@ -1,11 +1,10 @@
-"""MLM masking, MetaLoader and the profiling helpers of the port vs the
-JAX package on the CPU: the host masking and the ratio interleaver give
-the JAX package's results under the same numpy Generator, the torch
-masking core fed the JAX function's own draws gives its output bit for
-bit, the torch masking's proportions sit inside binomial bounds, and the
-timers keep the JAX package's API (tests/test_aux.py's cases)."""
+"""MLM masking and MetaLoader of the port vs the JAX package on the CPU:
+the host masking and the ratio interleaver give the JAX package's
+results under the same numpy Generator, the torch masking core fed the
+JAX function's own draws gives its output bit for bit, and the torch
+masking's proportions sit inside binomial bounds (tests/test_aux.py's
+cases)."""
 
-import json
 import math
 
 import numpy as np
@@ -18,7 +17,6 @@ import torch
 from sasvqa_tpu.data import mlm as jmlm
 from sasvqa_tpu.data.pipeline import MetaLoader as JMetaLoader
 
-from sasvqa_torch.core import profiling as tprof
 from sasvqa_torch.data import mlm as tmlm
 from sasvqa_torch.data.pipeline import MetaLoader as TMetaLoader
 
@@ -126,38 +124,3 @@ def test_meta_loader_matches_jax(ratios):
     assert len({t for t, _ in got}) == 3
     with pytest.raises(ValueError, match="at least one"):
         TMetaLoader({}, np.random.default_rng(0))
-
-
-def test_timers():
-    t = tprof.Timer()
-    t.tic()
-    _ = sum(range(1000))
-    assert t.toc() >= 0 and t.calls == 1
-    assert t.toc(average=False) >= 0 and t.calls == 2
-
-    st = tprof.StepTimer(max_samples=3)
-    for _ in range(5):
-        with st.stage("data"):
-            _ = sum(range(1000))
-    with st.stage("step"):
-        _ = sum(range(1000))
-    s = st.summary()
-    assert set(s) == {"data", "step"}
-    assert s["data"]["count"] == 3 and s["step"]["count"] == 1
-    assert set(s["data"]) == {"mean_ms", "p50_ms", "p95_ms", "count"}
-
-    x = torch.ones(4)
-    assert tprof.synced(x) is x
-    tree = {"a": [x, (x, 3)], "b": None}
-    assert tprof.synced(tree) is tree
-
-
-def test_trace_writes_a_chrome_trace(tmp_path):
-    with tprof.trace(str(tmp_path / "t")):
-        with tprof.annotate("probe_region"):
-            torch.ones(8) @ torch.ones(8)
-    with open(tmp_path / "t" / "trace.json") as f:
-        events = json.load(f)["traceEvents"]
-    assert any(e.get("name") == "probe_region" for e in events)
-    with tprof.trace(None):
-        pass
