@@ -88,6 +88,13 @@ kernel the launcher runs), and SDPA's time on the same inputs by device
 time (the backwards: fwd+bwd window minus fwd window) with the kernels
 it ran.
 
+A train step replays its micros from a captured CUDA graph, which no
+kernel wrapper sees: the two train phases count the port's kernels in
+the profiler's device records of one more update and hold those counts,
+and the kernels line reports launches so measured, the wrappers' own
+and the train phases' traced ones, never the counts a replay adds from
+its capture (``ops._build.replayed_counts``).
+
 Each phase prints one JSON line; the line before the last lists the
 kernels, the last is ``{"ok": true, "device": {...}}``.  Exits non-zero,
 with no result, when there is no GPU or any check fails.
@@ -135,7 +142,8 @@ from sasvqa_torch.ops.git_flash import (git_flash_attention,
                                         git_mask_ok, hash_dropout_factor)
 from sasvqa_torch.tasks import run_video_qa
 from sasvqa_torch.tasks.serve import QAEngine
-from sasvqa_torch.tools.bwd_yardstick import (PROFILER_STATS, device_window,
+from sasvqa_torch.tools.bwd_yardstick import (LEAD_FILLS, MARK, MARK_CYCLES,
+                                              PROFILER_STATS, device_window,
                                               sdpa_backward)
 from sasvqa_torch.tools.hf_checkpoint import (check_loaded, hf_clip_shapes,
                                               hf_git_shapes,
@@ -186,9 +194,10 @@ SLICE = dict(batch_size=8, frames=8, stored_frames=16, img=224,
 # the bench's flagship train step (bench.py): B=16, 8 frames of 224x224,
 # text length 32, S = 8*197 + 32 = 1608; the shipped msvd_qa_base optimizer
 # groups (betas 0.9/0.98, weight decay 1e-3, grad_norm 5) with a learning
-# rate that moves random weights within a few updates
+# rate that moves random weights within a few updates; the warm-up
+# updates cover the step's eager warm-up micros and its graph's capture
 TRAIN = dict(batch_size=16, frames=8, max_seq_len=32, k_micro=2,
-             warmup_updates=1, timed_updates=3, seed=0,
+             warmup_updates=2, timed_updates=3, seed=0,
              optim={"optim": "adamw", "learning_rate": 2e-4,
                     "betas": [0.9, 0.98], "weight_decay": 1e-3,
                     "grad_norm": 5.0, "decay": "constant"})
@@ -255,6 +264,73 @@ def device_ms(fn, reps: int, kernel: str = "flash_fwd_sm90") -> float:
     time does."""
     _, names = device_window(fn, reps)
     return sum(ms for name, ms in names.items() if kernel in name)
+
+
+def launches_made():
+    """The kernel wrappers' own launch counts: ``launch_counts`` less what
+    the replays of captured graphs added to it, which no wrapper saw."""
+    return {name: n - _build.replayed_counts[name]
+            for name, n in _build.launch_counts.items()}
+
+
+# a device record of K1/K2/K3/K5/K6: (kernel, mask kind, dropout, K2's
+# products); the mask kind kGitMask (2) is the GIT kernels'
+_PORT_KERNEL = re.compile(r"(flash_fwd|flash_bwd_fused|flash_bwd_dq|"
+                          r"flash_bwd_dkv)_sm90_kernel<(\d+), (true|false)"
+                          r"(?:, (true|false))?>")
+ROWSUM = "rowsum_product"
+
+
+def traced_launches(fn, tries=3):
+    """The port's kernels the card ran in one call of ``fn``, counted from
+    ``torch.profiler``'s device records by kernel name under the launch
+    counters' names, with ``rowsum_product`` (a backward's prologue).
+    Where ``fn`` replays a captured graph this is what ran, which the
+    wrappers cannot count.  As in ``device_window``, the profiler's
+    warm-up step runs ``fn`` once uncounted, and the recorded step runs
+    small fills and a marker kernel before the counted call, whose
+    records are those that start after the marker; a step whose marker
+    was lost is taken again."""
+    pad = torch.zeros(1, device="cuda")
+    for _ in range(tries):
+        sched = torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA],
+                schedule=sched) as prof:
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+            for _ in range(LEAD_FILLS):
+                pad.zero_()
+            torch.cuda._sleep(MARK_CYCLES)
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+        events = [e for e in prof.events() if e.self_device_time_total > 0]
+        marks = [e for e in events if MARK in e.name]
+        if marks:
+            break
+    else:
+        raise RuntimeError(f"torch.profiler lost the marker in {tries} "
+                           f"steps")
+    t0 = max(m.time_range.end for m in marks)
+    counts = dict.fromkeys(KERNELS + (ROWSUM,), 0)
+    for e in events:
+        if e.time_range.start < t0:
+            continue
+        if f"{ROWSUM}_kernel" in e.name:
+            counts[ROWSUM] += 1
+            continue
+        m = _PORT_KERNEL.search(e.name)
+        if m is None or m.group(4) == "false":  # K2's reduction instrument
+            continue
+        base, git = m.group(1), m.group(2) == "2"
+        name = {"flash_fwd": "flash_fwd", "flash_bwd_fused": "flash_bwd",
+                "flash_bwd_dq": "flash_bwd_dq",
+                "flash_bwd_dkv": "flash_bwd_dkv"}[base]
+        counts[f"git_{name}" if git else name] += 1
+        counts[_build.HASH_DROPOUT] += m.group(3) == "true"
+    return counts
 
 
 def roofline(ops, nbytes, peak=PEAK_BF16_FLOPS):
@@ -750,7 +826,7 @@ def phase_grad_check(seed):
         loss.backward()
         torch.cuda.synchronize()
         res[route] = dict(
-            loss=loss.item(), launches=dict(_build.launch_counts),
+            loss=loss.item(), launches=launches_made(),
             grads={n: p.grad.float() for n, p in model.named_parameters()},
             qkv=[lyr.attention.qkv.weight.grad.abs().sum().item()
                  for lyr in model.layers])
@@ -823,20 +899,28 @@ def phase_train(seed):
     setup_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
     losses, gnorms = [], []
-    for _ in range(TRAIN["warmup_updates"]):
+
+    def update():
+        nonlocal state
         state, m = step(state, batch, seed)
         losses.append(m["loss"].item())
         gnorms.append(m["grad_norm"].item())
+
+    for _ in range(TRAIN["warmup_updates"]):
+        update()
     torch.cuda.synchronize()
     _build.reset_launch_counts()
+    train_steps.reset_micro_counts()
     t0 = time.perf_counter()
     for _ in range(TRAIN["timed_updates"]):
-        state, m = step(state, batch, seed)
-        losses.append(m["loss"].item())
-        gnorms.append(m["grad_norm"].item())
+        update()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(_build.launch_counts)
+    # the timed updates' counts, where each replay adds what its capture
+    # recorded, and the card's own records of one more update
+    inferred = dict(_build.launch_counts)
+    micro_counts = dict(train_steps.micro_counts)
+    launches = traced_launches(update)
     micros = k * TRAIN["timed_updates"]
     qkv = [lyr.attention.qkv.weight.grad.abs().sum().item()
            for lyr in model.layers]
@@ -849,18 +933,28 @@ def phase_train(seed):
            "ms_per_update": wall / TRAIN["timed_updates"] * 1e3,
            "qa_pairs_per_s": micros * b / wall,
            "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 2**30,
-           "loss": losses, "grad_norm": gnorms, "launches": launches,
+           "loss": losses, "grad_norm": gnorms,
+           "launches_traced_one_update": launches,
+           "launches_inferred_timed": inferred, "micros_timed": micro_counts,
            "text_qkv_grad_abs_sum": qkv, "micro_steps": state.step}
     emit(row)
-    n = cfg.num_layers * micros
+    n = cfg.num_layers * k
     check(seq_len == 1608, f"train sequence {seq_len} != 1608")
     check(all(np.isfinite(losses)) and losses[-1] < losses[0],
           f"loss is not finite and falling: {losses}")
     bwd = bwd_kernels()
     check(launches["git_flash_fwd"] == n
           and all(launches[k] == n for k in bwd)
+          and launches[ROWSUM] == n
           and launches["hash_dropout"] == (1 + len(bwd)) * n,
-          f"train launches {launches}, expected {n} of K1 and of {bwd}")
+          f"train: the card ran {launches} in one update, expected {n} "
+          f"of K1, of {bwd} and of {ROWSUM}")
+    check(micro_counts == {"replayed": micros, "eager": 0}
+          and all(inferred[name] == TRAIN["timed_updates"] * launches[name]
+                  for name in KERNELS),
+          f"train: the timed updates' micros {micro_counts} and inferred "
+          f"launches {inferred} are not {TRAIN['timed_updates']} replayed "
+          f"updates of the traced {launches}")
     check(all(x > 0 for x in qkv),
           "a text layer's qkv.weight got no gradient")
     del state, model, step
@@ -934,7 +1028,7 @@ def phase_blip_serve(n_requests, seed):
         answers = [f.result(timeout=600) for f in results]
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = dict(_build.launch_counts)
+        launches = launches_made()
         batches = engine.stats["batches"] - before["batches"]
     finally:
         engine.close()
@@ -1022,7 +1116,7 @@ def _blip_grads(seed, route, dtype, inputs):
                      seed))["loss"]
     loss.backward()
     torch.cuda.synchronize()
-    out = dict(loss=loss.item(), launches=dict(_build.launch_counts),
+    out = dict(loss=loss.item(), launches=launches_made(),
                grads={n: p.grad.float() for n, p in model.named_parameters()
                       if p.grad is not None},
                qkv=_vision_qkv_grads(model))
@@ -1160,12 +1254,15 @@ def phase_blip_train(seed):
         update()
     torch.cuda.synchronize()
     _build.reset_launch_counts()
+    train_steps.reset_micro_counts()
     t0 = time.perf_counter()
     for _ in range(BLIP_TRAIN["timed_updates"]):
         update()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(_build.launch_counts)
+    inferred = dict(_build.launch_counts)
+    micro_counts = dict(train_steps.micro_counts)
+    launches = traced_launches(update)
     micros = k * BLIP_TRAIN["timed_updates"]
     qkv = _vision_qkv_grads(model)
     row = {"phase": "blip_train",
@@ -1180,15 +1277,24 @@ def phase_blip_train(seed):
            "qa_pairs_per_s": micros * b / wall,
            "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 2**30,
            "loss": losses, "grad_norm": gnorms, "acc_correct_total": acc,
-           "launches": launches, "vision_qkv_grad_abs_sum": qkv,
-           "micro_steps": state.step}
+           "launches_traced_one_update": launches,
+           "launches_inferred_timed": inferred, "micros_timed": micro_counts,
+           "vision_qkv_grad_abs_sum": qkv, "micro_steps": state.step}
     emit(row)
-    n = model.vision_config.num_layers * micros
+    n = model.vision_config.num_layers * k
     check(all(np.isfinite(losses)) and losses[-1] < losses[0],
           f"BLIP loss is not finite and falling: {losses}")
     check(all(launches[name] == n for name in
-              ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")),
-          f"BLIP train launches {launches}, expected {n} of K5 and K6")
+              ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", ROWSUM)),
+          f"BLIP train: the card ran {launches} in one update, expected "
+          f"{n} of K5, of K6's two and of {ROWSUM}")
+    check(micro_counts == {"replayed": micros, "eager": 0}
+          and all(inferred[name] == BLIP_TRAIN["timed_updates"]
+                  * launches[name] for name in KERNELS),
+          f"BLIP train: the timed updates' micros {micro_counts} and "
+          f"inferred launches {inferred} are not "
+          f"{BLIP_TRAIN['timed_updates']} replayed updates of the traced "
+          f"{launches}")
     check(all(x > 0 for x in qkv),
           "a vision layer's qkv.weight got no gradient")
     del state, model, step
@@ -1292,7 +1398,7 @@ def phase_slice(n_requests, seed):
         answers = [f.result(timeout=600) for f in results]
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = dict(_build.launch_counts)
+        launches = launches_made()
         batches = engine.stats["batches"] - before["batches"]
     finally:
         engine.close()
@@ -1594,7 +1700,7 @@ def _vitl16_grads(route, remat, inputs, seed):
         torch.cuda.synchronize()
     finally:
         gf.FUSED_BWD = saved
-    out = dict(loss=loss.item(), launches=dict(_build.launch_counts),
+    out = dict(loss=loss.item(), launches=launches_made(),
                grads={n: p.grad.float() for n, p in model.named_parameters()},
                qkv=[lyr.attention.qkv.weight.grad.abs().sum().item()
                     for lyr in model.layers])
@@ -1828,7 +1934,7 @@ def _timed_start_training(cfg, root, store, wrap_loader=None,
                                              open_store=lambda path: store)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = dict(_build.launch_counts)
+        launches = launches_made()
     finally:
         for name, real in real_steps.items():
             setattr(train_steps, name, real)
@@ -2528,7 +2634,7 @@ def phase_git_load():
         answers = engine._run_batch([(f, q, None) for f, q in reqs])
         torch.cuda.synchronize()
         batch_s = time.perf_counter() - t0
-        launches = dict(_build.launch_counts)
+        launches = launches_made()
     finally:
         engine.close()
     row = {"phase": "git_load", "model": "microsoft/git-base-msrvtt-qa",
@@ -2640,7 +2746,7 @@ def phase_stage_a():
             device="cuda")
         torch.cuda.synchronize()
         extract_s = time.perf_counter() - t0
-        launches = dict(_build.launch_counts)
+        launches = launches_made()
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         with open(os.path.join(root, "out", "vidmapping.json")) as f:
             vidmap = json.load(f)
@@ -2773,7 +2879,7 @@ def phase_stage_b():
         gs.main(inds)
         torch.cuda.synchronize()
         inds_s = time.perf_counter() - t0
-        launches = dict(_build.launch_counts)
+        launches = launches_made()
         with open(os.path.join(adir, "frame_captions.json")) as f:
             caps = json.load(f)
         with open(os.path.join(adir, "qa_winds_train.json")) as f:
@@ -2893,7 +2999,7 @@ def phase_predict(root, route, hw):
             "answer"]
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
-    launches = dict(_build.launch_counts)
+    launches = launches_made()
     t0 = time.perf_counter()
     family, model, tok = pr.load_model(args, None, "cuda")
     build_s = time.perf_counter() - t0
@@ -2978,7 +3084,7 @@ def phase_serve_cli(root, route, hw):
         rc = 0
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
-    launches = dict(_build.launch_counts)
+    launches = launches_made()
     with open(out_path) as f:
         lines = [json.loads(line) for line in f]
     row = {"phase": "serve_cli", "decode": route or "frames in memory",
@@ -3082,7 +3188,7 @@ def phase_retrieval(ckpt):
                               open_store=lambda p: store)
             torch.cuda.synchronize()
             wall_s = time.perf_counter() - t0
-            launches = dict(_build.launch_counts)
+            launches = launches_made()
         finally:
             for name, fn in real.items():
                 setattr(rr, name, fn)
@@ -3216,7 +3322,7 @@ def phase_remat_sweep():
                     f"against full recompute at B {batch}")
             rows.append(row)
             del out
-    launches = dict(_build.launch_counts)
+    launches = launches_made()
     result = {"phase": "remat_sweep", "model": shape.model,
               "frames": shape.frames, "seq_len": shape.seq,
               "text_len": shape.text_len, "policies": rows,
@@ -3254,7 +3360,7 @@ def phase_profile_step():
         rows = ps.run(ps.FLAGSHIP, tuple(ps.PROBES), PROFILE_STEP_ITERS,
                       "cuda")
     wall_s = time.perf_counter() - t0
-    launches = dict(_build.launch_counts)
+    launches = launches_made()
     row = {"phase": "profile_step", "shape": dataclasses.asdict(ps.FLAGSHIP),
            "seq_len": ps.FLAGSHIP.seq, "iters": PROFILE_STEP_ITERS,
            "wall_s": wall_s, "probes": rows, "launches": launches,
@@ -3279,7 +3385,7 @@ def phase_quickstart():
                          writer=stores.writer, open_store=stores.open_store)
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
-        launches = dict(_build.launch_counts)
+        launches = launches_made()
         with open(os.path.join(root, "out", "log", "scalars.jsonl")) as f:
             tags = sorted({json.loads(line)["tag"] for line in f})
         with open(os.path.join(root, "cfg.json")) as f:
@@ -3531,7 +3637,7 @@ def phase_integrated_run():
             ir.CONFIG = real_config
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
-        launches = dict(_build.launch_counts)
+        launches = launches_made()
         run = os.path.join(root, "out", "run")
         with open(os.path.join(run, "log", "log.txt")) as f:
             _, evals = ir.read_log(f)

@@ -14,6 +14,8 @@ as ``ml_dtypes`` rounds) and become ``torch.bfloat16`` tensors in
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -67,11 +69,17 @@ def host_tensor(x) -> torch.Tensor:
 def dequantize(pixel_values: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """uint8 wire frames -> normalized pixels in ``dtype``, computed in
     f32 in the store's op order before the final cast."""
-    dev = pixel_values.device
+    mean, std = _normalize_consts(pixel_values.device)
     x = pixel_values.to(torch.float32) / np.float32(255.0)
-    x = (x - torch.from_numpy(CLIP_MEAN).to(dev)) \
-        / torch.from_numpy(CLIP_STD).to(dev)
-    return x.to(dtype)
+    return ((x - mean) / std).to(dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _normalize_consts(dev: torch.device):
+    """CLIP's mean and std on ``dev``, copied there once: a copy from
+    host memory inside a forward would stop a CUDA graph's capture."""
+    return (torch.from_numpy(CLIP_MEAN).to(dev),
+            torch.from_numpy(CLIP_STD).to(dev))
 
 
 def maybe_dequantize(pixel_values: torch.Tensor,

@@ -17,10 +17,18 @@ and ``flash_bwd`` (K6) hold two kernels each, counted apart as
 ``git_flash_bwd_dq``/``git_flash_bwd_dkv`` and
 ``flash_bwd_dq``/``flash_bwd_dkv``; ``git_flash_bwd`` (K2) also holds
 its reduction-only instrument, which no counter counts.
+
+A replay of a captured CUDA graph runs the launches its capture recorded
+without calling the wrappers: :func:`capturing` takes back the counts
+the wrappers made while a graph was captured (nothing ran) and keeps
+them, and :func:`count_replay` adds them to ``launch_counts`` on each
+replay and to ``replayed_counts``, which holds the part of
+``launch_counts`` that is so inferred and not counted at a launch.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -29,7 +37,7 @@ import shutil
 import subprocess
 import threading
 import time
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, Iterator, Optional
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_HERE, "csrc")
@@ -50,6 +58,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 launch_counts: Dict[str, int] = {name: 0 for name in COUNTERS}
+replayed_counts: Dict[str, int] = {name: 0 for name in COUNTERS}
 # nvcc's output per kernel from its build, kept beside the library
 # (-Xptxas -v: registers, shared memory, spills)
 build_logs: Dict[str, str] = {}
@@ -75,8 +84,34 @@ def count_launch(name: str) -> None:
 
 
 def reset_launch_counts() -> None:
-    for name in launch_counts:
-        launch_counts[name] = 0
+    for counts in (launch_counts, replayed_counts):
+        for name in counts:
+            counts[name] = 0
+
+
+@contextlib.contextmanager
+def capturing() -> Iterator[Dict[str, int]]:
+    """Around a CUDA graph's capture: yields a dict that holds, once the
+    block ends, the launches the wrappers counted inside it, which are
+    taken back out of ``launch_counts`` (a capture records, and runs
+    nothing)."""
+    before = dict(launch_counts)
+    recorded: Dict[str, int] = {}
+    try:
+        yield recorded
+    finally:
+        recorded.update({name: n - before[name]
+                         for name, n in launch_counts.items()
+                         if n != before[name]})
+        launch_counts.update(before)
+
+
+def count_replay(recorded: Dict[str, int]) -> None:
+    """Count the launches of one replay of a graph whose capture recorded
+    ``recorded`` (:func:`capturing`)."""
+    for name, n in recorded.items():
+        launch_counts[name] += n
+        replayed_counts[name] += n
 
 
 def _nvcc() -> str:

@@ -4,8 +4,9 @@
         [--shape git|blip|clip|vitl16] [--trace DIR]
 
 Runs ``torch.profiler`` over one ``make_scan_train_step`` update at full
-width (seeded random weights, bf16 activations, f32 params) after one
-warm-up update, at the train phases' shapes of chip_smoke.py:
+width (seeded random weights, bf16 activations, f32 params) after the
+warm-up updates (the step's graph captured), at the train phases' shapes
+of chip_smoke.py:
 
 - ``git``: GIT-base, dropout 0.1 and attention dropout 0.1, 2
   micro-batches of 16 questions over 8 frames of 224x224, text length 32,
@@ -25,8 +26,11 @@ warm-up update, at the train phases' shapes of chip_smoke.py:
 Prints one JSON line: host wall ms (ending in a synchronize), the device
 time of every CUDA kernel summed, the device busy share, the launch
 count, the kernels that took the most device time, and the device time
-of the kernel groups (the port's own kernels, GEMMs, the rest) and the
-port kernels' launch counts.  A second
+of the kernel groups (the port's own kernels, GEMMs, the rest), the
+port kernels' launch counts (``port_launches``; of them, those a
+replay of the step's graph added from its capture and no wrapper saw:
+``port_launches_replayed``) and the micros the step replayed from its
+captured graph or ran eagerly (``micros``).  A second
 line splits one micro-batch's time (host clock, ending in a synchronize)
 into the vision tower's forward, the whole forward, forward+backward, the
 pixel upload and the optimizer update.  ``--trace DIR`` also writes a
@@ -46,8 +50,10 @@ import torch
 from sasvqa_torch.models.presets import build_model
 from sasvqa_torch.ops import _build
 from sasvqa_torch.tools.profile_serve import profile_part
-from sasvqa_torch.train.steps import (_LOSSES, create_train_state,
-                                      make_scan_train_step)
+from sasvqa_torch.train.steps import (_LOSSES, MicroGraph,
+                                      create_train_state,
+                                      make_scan_train_step, micro_counts,
+                                      reset_micro_counts)
 
 SHAPES = {
     "git": dict(k_micro=2, batch=16, frames=8, img=224, text_len=32,
@@ -119,8 +125,12 @@ def main(argv=None) -> int:
         state, metrics = step(state, batch, 0)
         metrics["loss"].item()
 
-    update()                                   # warm-up
+    # warm-up: the kernels' builds, the step's eager warm-up micros and
+    # the capture of its graph
+    for _ in range(-(-(MicroGraph.WARMUP + 1) // shape["k_micro"])):
+        update()
     _build.reset_launch_counts()
+    reset_micro_counts()
     row = profile_part("train_update", update, args.trace, top=12,
                        keep_all=True)
     launches = {k: v for k, v in _build.launch_counts.items() if v}
@@ -135,7 +145,10 @@ def main(argv=None) -> int:
     del row["top_all"]
     row.update(shape=args.shape, k_micro=shape["k_micro"],
                batch_size=shape["batch"], frames=shape["frames"],
-               img=shape["img"], group_ms=groups, port_launches=launches)
+               img=shape["img"], group_ms=groups, port_launches=launches,
+               port_launches_replayed={k: v for k, v in
+                                       _build.replayed_counts.items() if v},
+               micros=dict(micro_counts))
     print(json.dumps(row), flush=True)
     print(json.dumps(_parts(state, batch, shape)), flush=True)
     return 0

@@ -25,6 +25,12 @@ advanced, and leaves the gradient it applied in each parameter's
 ``.grad``.  Dropout in a step draws from a ``torch.Generator`` seeded from
 (seed, micro step), the counterpart of ``jax.random.fold_in``.
 
+On one GPU a step replays each micro-batch's forward, backward and
+gradient accumulation from one captured CUDA graph (:class:`MicroGraph`)
+where it can observe that the graph does the eager path's work
+(:func:`_micro`, which both run): the same draws and the same numbers.
+``micro_counts`` counts the micros replayed and those run eagerly.
+
 Under a process group (``TrainState.plan``, a
 :class:`~sasvqa_torch.parallel.mesh.ParallelPlan`) a step computes the
 JAX package's loss over the global batch: each micro all-reduces its
@@ -40,6 +46,7 @@ the same masks.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from functools import partial
 from typing import (Any, Callable, Dict, List, Mapping, Optional, Sequence,
@@ -56,6 +63,7 @@ from sasvqa_torch.core.pixels import host_tensor
 from sasvqa_torch.core.profiling import span
 from sasvqa_torch.models.convert import flax_param_names
 from sasvqa_torch.models.git import greedy_generate
+from sasvqa_torch.ops import _build
 from sasvqa_torch.parallel.mesh import (ParallelPlan, full, is_dtensor,
                                         load_full_into, local)
 from sasvqa_torch.train.schedules import Schedule, get_lr_schedule, lr_value
@@ -445,7 +453,7 @@ def _classifier_loss(model: nn.Module, batch: Mapping[str, Any],
     correct = (out["logits"].argmax(dim=-1) == labels) & valid
     head = getattr(model, "head", None)
     ce = labels.dim() == 1 and getattr(head, "loss_type", "ce") == "ce"
-    n = valid.sum() if ce else torch.tensor(labels.shape[0], device=dev)
+    n = valid.sum() if ce else torch.full((), labels.shape[0], device=dev)
     return out["loss"], {"acc_correct": correct.sum(),
                          "acc_total": valid.sum(), "n_targets": n}
 
@@ -460,7 +468,7 @@ def _mc_loss(model: nn.Module, batch: Mapping[str, Any],
                                 labels=labels, deterministic=False,
                                 generator=generator)
     correct = out["logits"].argmax(dim=-1) == labels
-    n = torch.tensor(labels.shape[0], device=dev)
+    n = torch.full((), labels.shape[0], device=dev)
     return out["loss"], {"acc_correct": correct.sum(), "acc_total": n,
                          "n_targets": n}
 
@@ -483,47 +491,273 @@ def _loss_fn(family: str, n_options: int) -> LossFn:
     return _LOSSES[family]
 
 
-def _accumulate_and_update(state: TrainState,
-                           micros: Sequence[Mapping[str, Any]], seed: int,
-                           grad_mean: bool, dev: torch.device,
-                           loss_fn: LossFn
-                           ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+# micros of the train steps replayed from a captured graph and run
+# eagerly, as ``ops._build.launch_counts`` counts kernel launches
+micro_counts: Dict[str, int] = {"replayed": 0, "eager": 0}
+
+
+def reset_micro_counts() -> None:
+    for name in micro_counts:
+        micro_counts[name] = 0
+
+
+# the leaves of a micro-batch the losses read
+_MICRO_KEYS = ("text_input_ids", "text_attention_mask", "visual_inputs",
+               "labels")
+
+
+def _uses_remat(model: nn.Module) -> bool:
+    return any(getattr(m, "remat", False) for m in model.modules())
+
+
+def _welford_factor(i: int) -> float:
+    """The factor of micro ``i``'s step of the Welford mean, ``a + (g -
+    a) * factor``: the f32 reciprocal of i + 1, which is what ATen
+    multiplies a CUDA tensor by where it is divided by the host scalar
+    i + 1."""
+    return float(np.float32(1.0) / np.float32(i + 1))
+
+
+def _micro(model: nn.Module, params: Sequence[torch.Tensor],
+           mb: Mapping[str, Any], gen: torch.Generator, dev: torch.device,
+           loss_fn: LossFn, acc: Optional[List[torch.Tensor]],
+           factor: Union[float, torch.Tensor, None],
+           plan: Optional[ParallelPlan] = None,
+           micro: Optional[int] = None):
+    """One micro-batch, as the eager path runs it and a graph holds it:
+    the training forward (dropouts drawing from ``gen``), ``backward()``
+    and the accumulation of its gradients into ``acc``: ``a + (g - a) *
+    factor``, the Welford mean as optax.MultiSteps (``factor`` the
+    micro's :func:`_welford_factor`, a host float or a graph's device
+    scalar), or ``a + g``, the reference's sum over the window
+    (``factor`` None).  ``acc`` None (micro 0) leaves the gradients to
+    the caller.  ``micro``: the micro's index in its update, for its
+    spans (a graph's capture, which runs nothing, opens none).  Returns
+    the loss, the counts and the gradients."""
+    scope = span if micro is not None else _no_span
+    with scope("train.forward", micro=micro, graph=0):
+        for p in params:
+            p.grad = None
+        loss, metrics = loss_fn(model, mb, gen, dev)
+        n_targets = metrics.pop("n_targets")
+        if plan is not None:
+            # the global batch's loss: the local mean weighted by this
+            # rank's share of the micro's targets, summed over the ranks
+            total = plan.all_reduce(n_targets.clone())
+            loss = loss * (n_targets / total.clamp(min=1))
+    with scope("train.backward", micro=micro):
+        loss.backward()
+        if plan is not None:
+            plan.reduce_grads(params)
+    with scope("train.accumulate", micro=micro):
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+                 for p in params]
+        if acc is not None:
+            for a, g in zip(acc, grads):
+                a.add_(g if factor is None else (g - a).mul_(factor))
+    return loss.detach(), metrics, grads
+
+
+def _no_span(name: str, **attrs: Any) -> contextlib.nullcontext:
+    return contextlib.nullcontext()
+
+
+class MicroGraph:
+    """One micro-batch of a train step (:func:`_micro`) as a captured
+    CUDA graph.
+
+    A step takes the graph where it can observe that the graph does the
+    eager path's work (:meth:`takes`): a CUDA device, one process
+    (``state.plan`` None: collectives and FSDP hooks stay eager), a model
+    without remat, and a micro whose leaves have the shapes and dtypes of
+    the first one it took, on the same model and parameter storage (the
+    captured key).  Anything else runs the eager path; a new key does not
+    capture a second graph.
+
+    The first ``WARMUP`` micros it takes run the eager path on a side
+    stream (kernel builds, cuBLAS workspaces); then the graph is captured
+    on that stream, and every later micro replays it: the micro's leaves
+    are copied into the static inputs, the dropout generator registered
+    with the graph is reseeded with the micro's seed (Philox starts at
+    offset 0, as in the eager path's fresh generator), the Welford factor
+    is written into a device scalar, and the graph runs.  The static
+    accumulators are the warm-up's; micro 0 copies its gradients into
+    them.  The launches the capture recorded are counted on each replay
+    (``ops._build.count_replay``).  A capture that fails leaves the step
+    on the eager path, with a warning."""
+
+    WARMUP = 3
+
+    def __init__(self, loss_fn: LossFn, grad_mean: bool):
+        self.loss_fn = loss_fn
+        self.grad_mean = grad_mean
+        self.key: Optional[Tuple[Any, ...]] = None
+        self.warm = 0
+        self.failed = False
+        self.stream: Optional[torch.cuda.Stream] = None
+        self.done: Optional[torch.cuda.Event] = None
+        self._replay: Optional[Callable[[], None]] = None
+        self.launches: Dict[str, int] = {}
+
+    def takes(self, state: TrainState, dev: torch.device,
+              mb: Mapping[str, Any]) -> bool:
+        """Whether micro ``mb`` (and each micro of its update, which
+        share its shapes) goes the graph's way."""
+        if self.failed or dev.type != "cuda" or state.plan is not None:
+            return False
+        key = (state.model,
+               tuple(p.data_ptr() for p in state.optimizer.params),
+               tuple((tuple(t.shape), t.dtype)
+                     for t in (host_tensor(mb[k]) for k in _MICRO_KEYS)))
+        if self.key is None:
+            if _uses_remat(state.model):
+                return False
+            self.key = key
+        return key == self.key
+
+    def side_stream(self, dev: torch.device
+                    ) -> Optional[torch.cuda.Stream]:
+        """The stream of the warm-up and the capture (none off the
+        GPU)."""
+        if self.stream is None and dev.type == "cuda":
+            self.stream = torch.cuda.Stream(dev)
+        return self.stream
+
+    def bound_run_ahead(self) -> None:
+        """Mark the end of the update just enqueued, and return once the
+        device has ended the update before it: a replayed update is
+        enqueued long before the device runs it, and a loop that ran on
+        would take staged batches far ahead of the device, so that more
+        of them stayed alive than in the eager, launch-bound loop."""
+        done = torch.cuda.Event(blocking=True)
+        done.record()
+        if self.done is not None:
+            self.done.synchronize()
+        self.done = done
+
+    def ready(self, state: TrainState, dev: torch.device,
+              mb: Mapping[str, Any], acc: List[torch.Tensor]) -> bool:
+        """Whether this micro replays the graph, capturing it after the
+        warm-up; ``acc``: the update's accumulators so far."""
+        if self._replay is None and not self.failed:
+            if self.warm < self.WARMUP:
+                self.warm += 1
+                return False
+            self._capture(state, dev, mb, acc)
+        return self._replay is not None
+
+    def _capture(self, state: TrainState, dev: torch.device,
+                 mb: Mapping[str, Any], acc: List[torch.Tensor]) -> None:
+        params = state.optimizer.params
+        # static buffers, allocated once: the eager warm-up's accumulators
+        # become the graph's
+        self.inputs = {k: torch.empty_like(host_tensor(mb[k]), device=dev)
+                       for k in _MICRO_KEYS}
+        self.scale = torch.ones((), dtype=torch.float32, device=dev)
+        self.acc = acc or [torch.zeros_like(p) for p in params]
+        self.gen = torch.Generator(device=dev)
+        try:
+            with _build.capturing() as self.launches:
+                self._replay = self._record(state.model, params, dev)
+        except RuntimeError as e:
+            self.failed = True
+            LOGGER.warning(f"train step: CUDA graph capture failed, "
+                           f"micros stay eager ({e})")
+
+    def _record(self, model: nn.Module, params: Sequence[torch.Tensor],
+                dev: torch.device) -> Callable[[], None]:
+        """Capture :meth:`_run` (it records; nothing runs) and return
+        what runs it."""
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(self.gen)
+        # thread_local: the prefetch thread keeps staging batches
+        with torch.cuda.graph(graph, stream=self.stream,
+                              capture_error_mode="thread_local"):
+            self._run(model, params, dev)
+        return graph.replay
+
+    def _run(self, model: nn.Module, params: Sequence[torch.Tensor],
+             dev: torch.device) -> None:
+        """The graph's work: one micro on the static buffers."""
+        self.loss, self.metrics, self.grads = _micro(
+            model, params, self.inputs, self.gen, dev, self.loss_fn,
+            self.acc, self.scale if self.grad_mean else None)
+
+    def replay(self, mb: Mapping[str, Any], micro_seed: int,
+               i: int) -> None:
+        """Run micro ``i`` of an update through the graph."""
+        for k, t in self.inputs.items():
+            t.copy_(host_tensor(mb[k]))
+        self.gen.manual_seed(micro_seed)
+        if self.grad_mean:
+            self.scale.fill_(_welford_factor(i))
+        self._replay()
+        _build.count_replay(self.launches)
+        micro_counts["replayed"] += 1
+
+    def outputs(self, i: int) -> Tuple[torch.Tensor,
+                                       Dict[str, torch.Tensor]]:
+        """Micro ``i``'s loss and counts, cloned out of the static outputs
+        that the next replay overwrites; micro 0 also sets the
+        accumulators to its gradients (its own accumulation into the last
+        update's is overwritten), as the eager path adopts them."""
+        if i == 0:
+            torch._foreach_copy_(self.acc, self.grads)
+        return (self.loss.clone(),
+                {k: v.clone() for k, v in self.metrics.items()})
+
+
+def _accumulate(state: TrainState, micros: Sequence[Mapping[str, Any]],
+                seed: int, grad_mean: bool, dev: torch.device,
+                loss_fn: LossFn, graph: Optional[MicroGraph] = None):
+    """The micros' forward, backward and accumulation: (the accumulated
+    gradients, each micro's loss, each micro's counts, whether the
+    update went the graph's way)."""
     params = state.optimizer.params
     plan = state.plan
+    on_graph = graph is not None and graph.takes(state, dev, micros[0])
+    side = graph.side_stream(dev) if on_graph else None
     acc: List[torch.Tensor] = []
     losses, counts = [], []
     for i, mb in enumerate(micros):
-        with span("train.forward", micro=i):
-            micro_seed = fold_in(seed, state.step + i)
-            if plan is not None and plan.dp_size > 1:
-                micro_seed = fold_in(micro_seed, plan.dp_index)
-            gen = torch.Generator(device=dev).manual_seed(micro_seed)
-            for p in params:
-                p.grad = None
-            loss, metrics = loss_fn(state.model, mb, gen, dev)
-            n_targets = metrics.pop("n_targets")
-            if plan is not None:
-                # the global batch's loss: the local mean weighted by this
-                # rank's share of the micro's targets, summed over the ranks
-                total = plan.all_reduce(n_targets.clone())
-                loss = loss * (n_targets / total.clamp(min=1))
-        with span("train.backward", micro=i):
-            loss.backward()
-            if plan is not None:
-                plan.reduce_grads(params)
-        with span("train.accumulate", micro=i):
-            losses.append(loss.detach())
-            counts.append(metrics)
-            grads = [p.grad if p.grad is not None else torch.zeros_like(p)
-                     for p in params]
-            if i == 0:          # 0 + (g - 0) / 1 and 0 + g are g exactly
+        micro_seed = fold_in(seed, state.step + i)
+        if plan is not None and plan.dp_size > 1:
+            micro_seed = fold_in(micro_seed, plan.dp_index)
+        if on_graph and graph.ready(state, dev, mb, acc):
+            with span("train.forward", micro=i, graph=1):
+                graph.replay(mb, micro_seed, i)
+            with span("train.accumulate", micro=i):
+                loss, metrics = graph.outputs(i)
+                acc = graph.acc
+        else:
+            micro_counts["eager"] += 1
+            if side is not None:    # the graph's warm-up
+                side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                gen = torch.Generator(device=dev).manual_seed(micro_seed)
+                loss, metrics, grads = _micro(
+                    state.model, params, mb, gen, dev, loss_fn,
+                    acc if i else None,
+                    _welford_factor(i) if grad_mean else None, plan, i)
+            if side is not None:
+                torch.cuda.current_stream(dev).wait_stream(side)
+            if i == 0:          # 0 + (g - 0) * 1 and 0 + g are g exactly
                 acc = grads
-            elif grad_mean:     # Welford running mean, as optax.MultiSteps
-                for a, g in zip(acc, grads):
-                    a.add_((g - a) / (i + 1))
-            else:               # the reference's sum over the window
-                for a, g in zip(acc, grads):
-                    a.add_(g)
+        losses.append(loss)
+        counts.append(metrics)
+    return acc, losses, counts, on_graph
+
+
+def _accumulate_and_update(state: TrainState,
+                           micros: Sequence[Mapping[str, Any]], seed: int,
+                           grad_mean: bool, dev: torch.device,
+                           loss_fn: LossFn, graph: Optional[MicroGraph] = None
+                           ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+    params = state.optimizer.params
+    plan = state.plan
+    acc, losses, counts, on_graph = _accumulate(state, micros, seed,
+                                                grad_mean, dev, loss_fn,
+                                                graph)
     with span("train.optimizer"):
         for p, a in zip(params, acc):
             p.grad = a
@@ -538,6 +772,8 @@ def _accumulate_and_update(state: TrainState,
                                               for v in sums.values()]))
         sums = dict(zip(sums, summed.unbind()))
     loss = sums.pop("loss")
+    if on_graph:
+        graph.bound_run_ahead()
     return state, {"loss": loss, "grad_norm": gnorm, **sums}
 
 
@@ -551,10 +787,11 @@ def make_git_train_step(device: DeviceLike = "cuda") -> TrainStep:
     batch (an update, or a micro of a :class:`MultiSteps` window);
     dropout draws from a generator seeded from (seed, state.step)."""
     dev = resolve_device(device)
+    graph = MicroGraph(_git_loss, True)
 
     def step(state: TrainState, batch: Dict[str, Any], seed: int):
         return _accumulate_and_update(state, [batch], seed, True, dev,
-                                      _git_loss)
+                                      _git_loss, graph)
 
     return step
 
@@ -566,10 +803,11 @@ def make_classifier_train_step(device: DeviceLike = "cuda") -> TrainStep:
     batch; dropout draws from a generator seeded from (seed,
     state.step)."""
     dev = resolve_device(device)
+    graph = MicroGraph(_classifier_loss, True)
 
     def step(state: TrainState, batch: Dict[str, Any], seed: int):
         return _accumulate_and_update(state, [batch], seed, True, dev,
-                                      _classifier_loss)
+                                      _classifier_loss, graph)
 
     return step
 
@@ -582,10 +820,11 @@ def make_mc_train_step(n_options: int, device: DeviceLike = "cuda"
     optimizer call per batch (the JAX step reports no grad_norm)."""
     dev = resolve_device(device)
     loss_fn = _loss_fn("mc", n_options)
+    graph = MicroGraph(loss_fn, True)
 
     def step(state: TrainState, batch: Dict[str, Any], seed: int):
         state, metrics = _accumulate_and_update(state, [batch], seed, True,
-                                                dev, loss_fn)
+                                                dev, loss_fn, graph)
         del metrics["grad_norm"]
         return state, metrics
 
@@ -609,19 +848,20 @@ def make_scan_train_step(k_micro: int, family: str = "git",
     /K).  Metrics: ``loss`` is the mean over the K micros, ``grad_norm``
     the norm of the accumulated gradient before clipping; the classifier
     and mc families add ``acc_correct``/``acc_total`` summed over the K
-    micros."""
+    micros.  On one GPU the micros replay one captured CUDA graph
+    (:class:`MicroGraph`), with the same results."""
     if k_micro < 1:
         raise ValueError(f"k_micro must be >= 1, got {k_micro}")
     loss_fn = _loss_fn(family, n_options)
     dev = resolve_device(device)
+    graph = MicroGraph(loss_fn, grad_mean)
 
     def step(state: TrainState, batch: Dict[str, Any], seed: int):
         with span("train.update"):
-            micros = [{key: batch[key][i] for key in
-                       ("text_input_ids", "text_attention_mask",
-                        "visual_inputs", "labels")} for i in range(k_micro)]
+            micros = [{key: batch[key][i] for key in _MICRO_KEYS}
+                      for i in range(k_micro)]
             return _accumulate_and_update(state, micros, seed, grad_mean,
-                                          dev, loss_fn)
+                                          dev, loss_fn, graph)
 
     return step
 

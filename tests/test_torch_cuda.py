@@ -210,6 +210,121 @@ def test_scan_train_step_on_the_card(cuda):
     assert _build.launch_counts["hash_dropout"] == 2 * cfg.num_layers * 4
 
 
+def _bits(t):
+    return t.detach().reshape(-1).view(torch.uint8)
+
+
+@pytest.mark.parametrize("flash", [False, True])
+def test_replayed_micros_equal_the_eager_path(cuda, flash):
+    """Two updates of 4 micros of a tiny GIT with its dropouts on, through
+    the train step's captured graph (3 eager warm-up micros, the capture,
+    5 replays) and through the eager path on a copy: the same per-micro
+    losses, gradients (each parameter's ``.grad`` after the update), AdamW
+    moments and launch counts.  On the dense route every number is equal
+    bit for bit.  On the git-flash route K2 sums dQ by TMA reductions in
+    no fixed order, so the eager path is run three times to measure how
+    far it differs from itself; in both updates the graph's losses and
+    gradients lie as close to each eager run as the eager runs lie to
+    each other (within twice their largest gap: one more draw of the
+    same order of sums), where the wrong dropout draw or accumulation
+    would be off by the gradient's size."""
+    from sasvqa_torch.train import steps
+    cfg, cls = _dh64_git()
+    cfg = dataclasses.replace(cfg, attention_dropout=0.1)
+    rng = np.random.default_rng(3)
+    k = 4
+
+    def micro():
+        return {"text_input_ids": torch.from_numpy(
+                    rng.integers(5, 500, (2, 12))).to(cuda),
+                "text_attention_mask": torch.ones((2, 12), dtype=torch.int32,
+                                                  device=cuda),
+                "visual_inputs": torch.from_numpy(rng.normal(
+                    size=(2, 8, 64, 64, 3)).astype(np.float32)).to(
+                        cuda).bfloat16(),
+                "labels": torch.from_numpy(
+                    rng.integers(5, 500, (2, 12))).to(cuda)}
+
+    micros = [micro() for _ in range(2 * k)]
+
+    def run(graph):
+        model = cls(cfg, dtype=torch.bfloat16, flash=flash,
+                    generator=torch.Generator().manual_seed(0))
+        state = steps.create_train_state(model, {"learning_rate": 1e-3,
+                                                 "grad_norm": 5.0}, 10)
+        _build.reset_launch_counts()
+        steps.reset_micro_counts()
+        losses, grads = [], []
+        for u in range(2):
+            acc, ls, _, on_graph = steps._accumulate(
+                state, micros[u * k:(u + 1) * k], 7, True, cuda,
+                steps._git_loss, graph)
+            assert on_graph == (graph is not None)
+            for p, a in zip(state.optimizer.params, acc):
+                p.grad = a
+            state.optimizer.update(acc)
+            state.step += k
+            losses.append(torch.stack(ls))
+            grads.append([p.grad.clone() for p in state.optimizer.params])
+        torch.cuda.synchronize()
+        return dict(losses=losses, grads=grads,
+                    launches=dict(_build.launch_counts),
+                    replayed=dict(_build.replayed_counts),
+                    micros=dict(steps.micro_counts),
+                    moments=state.optimizer.mu + state.optimizer.nu)
+
+    graphed = run(steps.MicroGraph(steps._git_loss, True))
+    eager = [run(None) for _ in range(3 if flash else 1)]
+    assert eager[0]["micros"] == {"replayed": 0, "eager": 2 * k}
+    assert graphed["micros"] == {"replayed": 5, "eager": 3}
+    assert graphed["launches"] == eager[0]["launches"]
+    per_micro = {n: c // (2 * k) for n, c in eager[0]["launches"].items()}
+    assert graphed["replayed"] == {n: 5 * c for n, c in per_micro.items()}
+    assert eager[0]["launches"]["git_flash_bwd"] == (2 * k * cfg.num_layers
+                                                     if flash else 0)
+    if not flash:
+        for u in range(2):
+            assert torch.equal(_bits(graphed["losses"][u]),
+                               _bits(eager[0]["losses"][u])), u
+            for a, b in zip(graphed["grads"][u], eager[0]["grads"][u]):
+                assert torch.equal(_bits(a), _bits(b)), u
+        for a, b in zip(graphed["moments"], eager[0]["moments"]):
+            assert torch.equal(_bits(a), _bits(b))
+        return
+
+    def gap(x, y, u):
+        """The largest difference of two runs in update ``u``: of a loss
+        relative to the losses' largest magnitude, or of a gradient
+        relative to its leaf's."""
+        worst = ((x["losses"][u] - y["losses"][u]).abs().max()
+                 / y["losses"][u].abs().max()).item()
+        for a, b in zip(x["grads"][u], y["grads"][u]):
+            worst = max(worst, ((a - b).abs().max()
+                                / b.abs().max().clamp(min=1e-12)).item())
+        return worst
+
+    for u in range(2):
+        spread = max(gap(eager[i], eager[j], u)
+                     for i in range(3) for j in range(i + 1, 3))
+        off = max(gap(graphed, e, u) for e in eager)
+        assert off <= 2 * spread, (u, off, spread)
+
+
+def test_welford_factor_rounds_as_the_host_scalar_division(cuda):
+    """On the card, ``d / (i + 1)`` by the host scalar (the eager
+    accumulation the graph replaced) is ``d * _welford_factor(i)`` bit for
+    bit, whether the factor is a host float or a device scalar."""
+    from sasvqa_torch.train.steps import _welford_factor
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    d = torch.randn(1 << 16, device=cuda, generator=gen) * 1e-3
+    for i in range(1, 80):
+        want = d / (i + 1)
+        f = _welford_factor(i)
+        assert torch.equal(_bits(want), _bits(d.clone().mul_(f))), i
+        dev_f = torch.full((), f, dtype=torch.float32, device=cuda)
+        assert torch.equal(_bits(want), _bits(d.clone().mul_(dev_f))), i
+
+
 # ---- K5 / K6: the generic flash kernels ------------------------------------
 
 FLASH_SHAPES = [  # (B, H, Lq, Lk, bias)

@@ -24,6 +24,7 @@ from sasvqa_torch.data.pipeline import stack_microbatches
 from sasvqa_torch.models import git as tgit
 from sasvqa_torch.models.convert import state_dict_from_flax
 from sasvqa_torch.models.layers import Dropout
+from sasvqa_torch.ops import _build
 from sasvqa_torch.train import schedules as tsched
 from sasvqa_torch.train import steps as tsteps
 
@@ -371,3 +372,152 @@ def test_stack_microbatches_matches_jax():
                 np.testing.assert_array_equal(a[key], b[key])
             else:
                 assert a[key] == b[key]
+
+
+# ---- the captured micro (MicroGraph) ----------------------------------------
+
+def _tiny_git():
+    cfg = port_git_config(_no_dropout(ROUTES["dense"][0],
+                                      attention_dropout=0.1, dropout=0.1))
+    return tgit.GITForCausalLM(cfg, flash=False)
+
+
+def _tiny_clip():
+    from sasvqa_torch.models.presets import build_model
+    return build_model({"model": {"pretrained_model": "tiny-clip"},
+                        "img_size": 32, "num_labels": 5,
+                        "classifier": "mlp"}, device="cpu")[1]
+
+
+def _family_micros(family, n, seed=0):
+    if family == "git":
+        return _micros(port_git_config(ROUTES["dense"][0]), n, seed)
+    out = []
+    for i in range(n):
+        rng = np.random.default_rng(seed + i)
+        mask = np.ones((3, 6), np.int32)
+        mask[1:, 4:] = 0
+        out.append({"text_input_ids": rng.integers(3, 400, (3, 6)),
+                    "text_attention_mask": mask,
+                    "visual_inputs": rng.normal(
+                        size=(3, 1, 32, 32, 3)).astype(np.float32),
+                    "labels": rng.integers(0, 5, (3,))})
+    return out
+
+
+def _bits(t):
+    return t.detach().reshape(-1).view(torch.uint8)
+
+
+class _RunOnTheCPU(tsteps.MicroGraph):
+    """The graph route with the graph's work (the shared micro on the
+    static buffers, with the device-scalar Welford factor) run eagerly
+    where the graph would replay it, on the CPU."""
+
+    WARMUP = 1
+
+    def takes(self, state, dev, mb):
+        return True
+
+    def _record(self, model, params, dev):
+        return lambda: self._run(model, params, dev)
+
+    def bound_run_ahead(self):
+        pass                # the CPU runs each op as it is called
+
+
+def test_micro_graph_route_is_chosen_from_what_the_step_observes():
+    """The graph is taken on a CUDA device, without a process group or
+    remat, for micros with the shapes and dtypes of the first one it took
+    on the same model; anything else, the CPU first, stays eager."""
+    cuda = torch.device("cuda")      # only compared: nothing runs there
+    cfg = _opt_cfg(decay="constant")
+    state = tsteps.create_train_state(_tiny_git(), cfg, 4, device="cpu")
+    mb = _micros(port_git_config(ROUTES["dense"][0]), 1)[0]
+    g = tsteps.MicroGraph(tsteps._git_loss, True)
+    assert not g.takes(state, torch.device("cpu"), mb)
+    assert not g.takes(dataclasses.replace(state, plan=object()), cuda, mb)
+    remat = tgit.GITForCausalLM(_tiny_git().config, flash=False, remat=True)
+    rstate = tsteps.create_train_state(remat, cfg, 4, device="cpu")
+    assert not g.takes(rstate, cuda, mb) and g.key is None
+    assert g.takes(state, cuda, mb)              # fixes the captured key
+    assert g.takes(state, cuda, dict(_micros(
+        port_git_config(ROUTES["dense"][0]), 1, seed=5)[0]))
+    longer = _batch(port_git_config(ROUTES["dense"][0]), b=2, t=1, l=9)
+    assert not g.takes(state, cuda, longer)
+    assert not g.takes(state, cuda, dict(
+        mb, visual_inputs=mb["visual_inputs"].astype(np.float64)))
+    other = tsteps.create_train_state(_tiny_git(), cfg, 4, device="cpu")
+    assert not g.takes(other, cuda, mb)
+    assert not g.takes(rstate, cuda, mb)
+    # on the CPU every micro of a step runs eagerly
+    tsteps.reset_micro_counts()
+    step = tsteps.make_scan_train_step(2, device="cpu")
+    state, _ = step(state, next(stack_microbatches(iter(
+        _micros(port_git_config(ROUTES["dense"][0]), 2)), 2)), 0)
+    assert tsteps.micro_counts == {"replayed": 0, "eager": 2}
+
+
+@pytest.mark.parametrize("family", ["git", "classifier"])
+@pytest.mark.parametrize("k", [1, 3])
+@pytest.mark.parametrize("grad_mean", [True, False])
+def test_micro_graph_body_equals_the_eager_path_bitwise(family, k,
+                                                        grad_mean):
+    """The graph route with the graph's work run eagerly (static inputs,
+    the reseeded generator, the device-scalar Welford factor, the static
+    accumulators, micro 0's copy, the cloned outputs) gives the eager
+    path's losses, counts, gradients, AdamW moments and parameters bit
+    for bit, over updates that warm up, capture mid-update and replay."""
+    build = _tiny_git if family == "git" else _tiny_clip
+    loss_fn = tsteps._loss_fn(family, 0)
+    cfg = _opt_cfg(decay="constant", grad_norm=0.5)
+    eager = tsteps.create_train_state(build().train(), cfg, 8, device="cpu")
+    graphed = tsteps.create_train_state(build().train(), cfg, 8,
+                                        device="cpu")
+    graph = _RunOnTheCPU(loss_fn, grad_mean)
+    cpu = torch.device("cpu")
+    tsteps.reset_micro_counts()
+    updates = 3 if k == 1 else 2
+    micros = _family_micros(family, k * updates)
+    for u in range(updates):
+        mbs = micros[u * k:(u + 1) * k]
+        eager, me = tsteps._accumulate_and_update(eager, mbs, 9, grad_mean,
+                                                  cpu, loss_fn)
+        graphed, mg = tsteps._accumulate_and_update(graphed, mbs, 9,
+                                                    grad_mean, cpu, loss_fn,
+                                                    graph)
+        assert me.keys() == mg.keys()
+        for key in me:
+            assert torch.equal(_bits(me[key]), _bits(mg[key])), (u, key)
+    assert tsteps.micro_counts["replayed"] == k * updates - 1
+    for (name, pe), pg in zip(eager.model.named_parameters(),
+                              graphed.model.parameters()):
+        assert torch.equal(_bits(pe), _bits(pg)), name
+        assert torch.equal(_bits(pe.grad), _bits(pg.grad)), name
+    for moments in ("mu", "nu"):
+        for a, b in zip(getattr(eager.optimizer, moments),
+                        getattr(graphed.optimizer, moments)):
+            assert torch.equal(_bits(a), _bits(b)), moments
+
+
+def test_a_capture_takes_back_its_launch_counts_and_replays_add_them():
+    """The wrappers' counts made while a graph is captured (nothing ran)
+    leave ``launch_counts`` and come back once a replay, counted in
+    ``replayed_counts`` too; a reset clears both."""
+    _build.reset_launch_counts()
+    _build.count_launch("git_flash_fwd")
+    with _build.capturing() as recorded:
+        _build.count_launch("git_flash_fwd")
+        _build.count_launch(_build.HASH_DROPOUT)
+    assert recorded == {"git_flash_fwd": 1, _build.HASH_DROPOUT: 1}
+    assert _build.launch_counts["git_flash_fwd"] == 1
+    assert _build.launch_counts[_build.HASH_DROPOUT] == 0
+    for _ in range(3):
+        _build.count_replay(recorded)
+    assert _build.launch_counts["git_flash_fwd"] == 4
+    assert _build.replayed_counts == dict(
+        dict.fromkeys(_build.COUNTERS, 0), git_flash_fwd=3,
+        **{_build.HASH_DROPOUT: 3})
+    _build.reset_launch_counts()
+    assert not any(_build.launch_counts.values())
+    assert not any(_build.replayed_counts.values())
