@@ -5,9 +5,11 @@ arrays under the JAX package's module names):
 
 - HF PyTorch state dict -> Flax layout: ``convert_clip_text``,
   ``convert_clip_vision``, ``convert_git``, ``convert_blip_vision``,
-  ``convert_blip_text``, ``convert_clip_video_qa``, and the reference's
-  whole finetuned classifiers ``convert_clip_classifier`` /
-  ``convert_blip_classifier`` (copies of the JAX package's converters);
+  ``convert_blip_text``, ``convert_clip_video_qa``,
+  ``convert_blip_video_qa`` (a published BLIP checkpoint, with or without
+  the answer head), and the reference's whole finetuned classifiers
+  ``convert_clip_classifier`` / ``convert_blip_classifier`` (copies of
+  the JAX package's converters);
 - Flax layout -> the port's modules: :func:`state_dict_from_flax` (a whole
   tree, strict) and :func:`merge_pretrained` (an overlay onto a built
   model that keeps what the checkpoint lacks or gets wrong, and reports
@@ -351,15 +353,17 @@ def convert_blip_text(sd: Mapping[str, Any], num_layers: int,
                       prefix: str = "",
                       cross_attention: bool = True) -> Dict[str, Any]:
     """HF BlipTextModel state dict -> BLIPTextEncoder params (the
-    cross-attention sub-blocks where the checkpoint has them)."""
+    cross-attention sub-blocks and the pooler where the checkpoint has
+    them: ``BlipForQuestionAnswering``'s text encoder has no pooler)."""
     pre = f"{prefix}." if prefix else ""
     params = {
         "word_embeddings": _emb(sd, f"{pre}embeddings.word_embeddings"),
         "position_embeddings": _emb(
             sd, f"{pre}embeddings.position_embeddings"),
         "emb_ln": _ln(sd, f"{pre}embeddings.LayerNorm"),
-        "pooler": _lin(sd, f"{pre}pooler.dense"),
     }
+    if f"{pre}pooler.dense.weight" in sd:
+        params["pooler"] = _lin(sd, f"{pre}pooler.dense")
     for i in range(num_layers):
         p = f"{pre}encoder.layer.{i}"
         layer = {
@@ -393,15 +397,22 @@ def convert_clip_video_qa(sd: Mapping[str, Any], num_text_layers: int,
 
 
 def _torch_mha(sd, prefix):
-    """torch.nn.MultiheadAttention (packed ``in_proj``) -> the
-    MultiHeadAttention {q,k,v,out}_proj params."""
-    w = _np(sd[f"{prefix}.in_proj_weight"])    # (3D, D)
+    """torch.nn.MultiheadAttention -> the MultiHeadAttention
+    {q,k,v,out}_proj params: the packed ``in_proj_weight`` (3D, D), or,
+    where the keys are wider than the queries (``kdim``/``vdim``: a
+    1024-wide vision tower under a 768-wide text stack), the separate
+    ``{q,k,v}_proj_weight``; one packed ``in_proj_bias`` (3D) either
+    way."""
     b = _np(sd[f"{prefix}.in_proj_bias"])
-    d = w.shape[1]
+    d = b.shape[0] // 3
+    if f"{prefix}.in_proj_weight" in sd:
+        w = _np(sd[f"{prefix}.in_proj_weight"])
+        ws = [w[i * d:(i + 1) * d] for i in range(3)]
+    else:
+        ws = [_np(sd[f"{prefix}.{n}_proj_weight"]) for n in "qkv"]
 
     def part(i):
-        return {"kernel": w[i * d:(i + 1) * d].T,
-                "bias": b[i * d:(i + 1) * d]}
+        return {"kernel": ws[i].T, "bias": b[i * d:(i + 1) * d]}
 
     return {"q_proj": part(0), "k_proj": part(1), "v_proj": part(2),
             "out_proj": _lin(sd, f"{prefix}.out_proj")}
@@ -430,10 +441,15 @@ def _unwrap(sd: Mapping[str, Any]) -> Mapping[str, Any]:
 
 
 def _answer_head(sd, n_fusion_layers):
-    return {"attention": {f"layers_{i}": _torch_decoder_layer(
+    """The dec-only fusion layers and the classifier, with the MLP
+    classifier's hidden layer ``cls_fc`` where the checkpoint has it."""
+    head = {"attention": {f"layers_{i}": _torch_decoder_layer(
                 sd, f"attention.attention.layers.{i}")
                 for i in range(n_fusion_layers)},
             "classifier": _lin(sd, "classifier")}
+    if "cls_fc.weight" in sd:
+        head["cls_fc"] = _lin(sd, "cls_fc")
+    return head
 
 
 def convert_clip_classifier(sd: Mapping[str, Any], num_text_layers: int,
@@ -442,10 +458,10 @@ def convert_clip_classifier(sd: Mapping[str, Any], num_text_layers: int,
     """Reference ``CLIPForSeqClassification`` state dict (its
     src/modeling/modeling.py:393-448) -> ``CLIPVideoQA`` params: the whole
     finetuned model (CLIP text and vision towers, the dec-only
-    CrossAttentionLayer, a torch TransformerDecoder, and the linear answer
-    classifier), so a reference-finetuned classifier checkpoint loads
-    through :func:`merge_pretrained`.  ``VLModel.``-prefixed dicts are
-    accepted too."""
+    CrossAttentionLayer, a torch TransformerDecoder, and the answer
+    classifier, linear or MLP), so a reference-finetuned classifier
+    checkpoint loads through :func:`merge_pretrained`.  ``VLModel.``-
+    prefixed dicts are accepted too."""
     sd = _unwrap(sd)
     return {
         "txt_model": convert_clip_text(
@@ -463,8 +479,9 @@ def convert_blip_classifier(sd: Mapping[str, Any], num_text_layers: int,
     """Reference BLIP-family ``CLIPForSeqClassification`` state dict
     (modeling.py:393-411 over ``BLIPBaseModel``, :299-315) ->
     ``BLIPVideoQA`` params: the BLIP vision tower, the cross-attending
-    BLIP text encoder, the dec-only CrossAttentionLayer and the linear
-    answer classifier.  ``VLModel.``-prefixed dicts are accepted too."""
+    BLIP text encoder, the dec-only CrossAttentionLayer and the answer
+    classifier, linear or MLP.  ``VLModel.``-prefixed dicts are accepted
+    too."""
     sd = _unwrap(sd)
     return {
         "txt_model": convert_blip_text(sd, num_text_layers,
@@ -473,3 +490,31 @@ def convert_blip_classifier(sd: Mapping[str, Any], num_text_layers: int,
                                          prefix="vlm.vis_model"),
         "answer_head": _answer_head(sd, n_fusion_layers),
     }
+
+
+# BlipForQuestionAnswering's answer decoder, which the classifier never
+# reads
+BLIP_DECODER_PREFIX = "text_decoder."
+
+
+def convert_blip_video_qa(sd: Mapping[str, Any], num_text_layers: int,
+                          num_vision_layers: int) -> Dict[str, Any]:
+    """A local BLIP checkpoint -> ``BLIPVideoQA`` params, its layout told
+    by its keys: the published ``BlipForQuestionAnswering``
+    (``vision_model.*``, ``text_encoder.*`` without a pooler, and the
+    answer decoder ``text_decoder.*``, not read) or ``BlipModel``
+    (``vision_model.*``, ``text_model.*``).  Where the checkpoint holds
+    ``classifier.weight`` the answer head is read too, under the
+    reference classifier's names (:func:`_answer_head`); otherwise it
+    keeps its init."""
+    text = "text_encoder" if any(k.startswith("text_encoder.")
+                                 for k in sd) else "text_model"
+    params = {"txt_model": convert_blip_text(sd, num_text_layers,
+                                             prefix=text),
+              "vis_model": convert_blip_vision(sd, num_vision_layers,
+                                               prefix="vision_model")}
+    if "classifier.weight" in sd:
+        layers = {k.split(".")[3] for k in sd
+                  if k.startswith("attention.attention.layers.")}
+        params["answer_head"] = _answer_head(sd, len(layers))
+    return params

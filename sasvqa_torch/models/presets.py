@@ -198,17 +198,22 @@ def load_pretrained_params(family: str, model, weights_path: str
     """Overlay the converted weights of a local HF checkpoint onto
     ``model`` in place, shape-tolerantly (reference: ``from_pretrained``
     plus ``load_state_dict_with_mismatch``); returns the
-    :func:`models.convert.merge_pretrained` report."""
+    :func:`models.convert.merge_pretrained` report, and in it, where the
+    checkpoint holds keys the family does not read (a BLIP VQA
+    checkpoint's ``text_decoder.*``), ``skipped_in_ckpt``: those keys.
+    A BLIP checkpoint may be the published ``BlipForQuestionAnswering``
+    or a ``BlipModel``, with or without the answer head
+    (:func:`models.convert.convert_blip_video_qa`)."""
     sd = _load_torch_state_dict(weights_path)
+    skipped: List[str] = []
     if family == "clip":
         converted = cv.convert_clip_video_qa(
             sd, model.text_config.num_layers, model.vision_config.num_layers)
     elif family == "blip":
-        converted = {
-            "txt_model": cv.convert_blip_text(
-                sd, model.text_config.num_layers, prefix="text_model"),
-            "vis_model": cv.convert_blip_vision(
-                sd, model.vision_config.num_layers, prefix="vision_model")}
+        converted = cv.convert_blip_video_qa(
+            sd, model.text_config.num_layers, model.vision_config.num_layers)
+        skipped = sorted(k for k in sd
+                         if k.startswith(cv.BLIP_DECODER_PREFIX))
     elif family == "git":
         converted = cv.convert_git(sd, model.config.num_layers,
                                    model.config.vision.num_layers)
@@ -219,6 +224,11 @@ def load_pretrained_params(family: str, model, weights_path: str
         f"loaded {len(report['loaded'])} tensors from {weights_path}; "
         f"{len(report['missing_in_ckpt'])} kept from init; "
         f"{len(report['mismatched'])} shape mismatches")
+    if skipped:
+        report["skipped_in_ckpt"] = skipped
+        LOGGER.info(f"  not read: {len(skipped)} tensors under "
+                    f"{cv.BLIP_DECODER_PREFIX}* (BLIP's answer decoder, "
+                    f"which the classifier does not use)")
     for line in report["mismatched"]:
         LOGGER.warning(f"  mismatch: {line}")
     return report

@@ -20,6 +20,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from sasvqa_torch.core.pixels import maybe_dequantize
+from sasvqa_torch.core.profiling import span
 from sasvqa_torch.models.blip import (BLIPTextConfig, BLIPTextEncoder,
                                       BLIPVisionConfig, BLIPVisionEncoder)
 from sasvqa_torch.models.clip import (CLIPTextConfig, CLIPTextEncoder,
@@ -192,6 +193,9 @@ class BLIPVideoQA(nn.Module):
 
     The text encoder cross-attends to the flattened (B, T*P, D) frame
     tokens; the fusion head reads the per-frame pooled CLS embeddings.
+    A forward run eagerly records the spans ``model.vision``,
+    ``model.text`` and ``model.head`` (:mod:`core.profiling`; a replayed
+    CUDA graph runs no Python, so records none).
     Weights are drawn from ``generator`` (default: seeded with 0).
     ``multiple_choice=True`` builds the multiple-choice scorer (see
     :func:`_heads`)."""
@@ -218,19 +222,21 @@ class BLIPVideoQA(nn.Module):
     def _encode(self, input_ids, attention_mask, pixel_values, repeat, gen):
         """Text hidden states cross-attending to the frame tokens, and the
         pooled frame embeddings, both repeated ``repeat`` times a video."""
-        pixel_values = maybe_dequantize(pixel_values, self.dtype)
-        b, t = pixel_values.shape[:2]
-        vis_hidden, vis_pooled = self.vis_model(
-            pixel_values.reshape((b * t,) + tuple(pixel_values.shape[2:])))
-        p, d = vis_hidden.shape[-2:]
-        enc_hidden = vis_hidden.reshape(b, t * p, d)
-        vis = vis_pooled.reshape(b, t, -1)
-        if repeat > 1:
-            enc_hidden = enc_hidden.repeat_interleave(repeat, dim=0)
-            vis = vis.repeat_interleave(repeat, dim=0)
-        txt_hidden, _ = self.txt_model(input_ids, attention_mask,
-                                       encoder_hidden=enc_hidden,
-                                       generator=gen)
+        with span("model.vision"):
+            pixel_values = maybe_dequantize(pixel_values, self.dtype)
+            b, t = pixel_values.shape[:2]
+            vis_hidden, vis_pooled = self.vis_model(pixel_values.reshape(
+                (b * t,) + tuple(pixel_values.shape[2:])))
+            p, d = vis_hidden.shape[-2:]
+            enc_hidden = vis_hidden.reshape(b, t * p, d)
+            vis = vis_pooled.reshape(b, t, -1)
+            if repeat > 1:
+                enc_hidden = enc_hidden.repeat_interleave(repeat, dim=0)
+                vis = vis.repeat_interleave(repeat, dim=0)
+        with span("model.text"):
+            txt_hidden, _ = self.txt_model(input_ids, attention_mask,
+                                           encoder_hidden=enc_hidden,
+                                           generator=gen)
         return txt_hidden, vis
 
     def forward(self, input_ids: torch.Tensor, attention_mask: torch.Tensor,
@@ -248,7 +254,9 @@ class BLIPVideoQA(nn.Module):
         txt_hidden, vis = self._encode(
             input_ids, attention_mask, pixel_values,
             input_ids.shape[0] // pixel_values.shape[0], gen)
-        return _classify(self, txt_hidden, attention_mask, vis, labels, gen)
+        with span("model.head"):
+            return _classify(self, txt_hidden, attention_mask, vis, labels,
+                             gen)
 
     def multiple_choice(self, input_ids: torch.Tensor,
                         attention_mask: torch.Tensor,
@@ -264,5 +272,6 @@ class BLIPVideoQA(nn.Module):
         gen = _dropout_generator(deterministic, generator)
         txt_hidden, vis = self._encode(input_ids, attention_mask,
                                        pixel_values, n_options, gen)
-        return _score_options(self, txt_hidden, attention_mask, vis,
-                              n_options, labels, gen)
+        with span("model.head"):
+            return _score_options(self, txt_hidden, attention_mask, vis,
+                                  n_options, labels, gen)
