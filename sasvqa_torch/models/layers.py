@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from sasvqa_torch.ops import layer_norm
 from sasvqa_torch.ops.attention import dot_product_attention
 
 # flax lecun_normal: truncated normal on [-2, 2] std, rescaled so the
@@ -68,7 +69,10 @@ class Dropout(nn.Module):
 
 class LayerNorm(nn.Module):
     """``flax.linen.LayerNorm`` counterpart: mean and variance
-    (E[x^2] - E[x]^2, clipped at 0) in f32, output cast to ``dtype``."""
+    (E[x^2] - E[x]^2, clipped at 0) in f32, output cast to ``dtype``.
+    CUDA tensors that ``ops/layer_norm.kernel_takes`` go through the
+    hand-written kernels; everything else through :meth:`plain`, which
+    the kernels are held against."""
 
     def __init__(self, features: int, eps: float,
                  dtype: torch.dtype = torch.float32):
@@ -79,6 +83,12 @@ class LayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.empty(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if layer_norm.kernel_takes(x, self.weight, self.bias, self.dtype):
+            return layer_norm.layer_norm(x, self.weight, self.bias, self.eps)
+        return self.plain(x)
+
+    def plain(self, x: torch.Tensor) -> torch.Tensor:
+        """The formula in plain PyTorch, on any device."""
         x = x.float()
         mean = x.mean(dim=-1, keepdim=True)
         var = torch.clamp((x * x).mean(dim=-1, keepdim=True) - mean * mean,

@@ -16,7 +16,10 @@ each of K3's two kernels.  The libraries ``git_flash_bwd_split`` (K3)
 and ``flash_bwd`` (K6) hold two kernels each, counted apart as
 ``git_flash_bwd_dq``/``git_flash_bwd_dkv`` and
 ``flash_bwd_dq``/``flash_bwd_dkv``; ``git_flash_bwd`` (K2) also holds
-its reduction-only instrument, which no counter counts.
+its reduction-only instrument, which no counter counts.  ``layer_norm``
+holds the LayerNorm forward (``layer_norm_fwd``) and backward
+(``layer_norm_bwd``: the row kernel and its column pass, one count a
+call).
 
 A replay of a captured CUDA graph runs the launches its capture recorded
 without calling the wrappers: :func:`capturing` takes back the counts
@@ -48,11 +51,12 @@ SOURCES = {"git_flash_fwd": "git_flash_fwd.cu",
            "git_flash_bwd": "git_flash_bwd.cu",
            "git_flash_bwd_split": "git_flash_bwd_split.cu",
            "flash_fwd": "flash_fwd.cu",
-           "flash_bwd": "flash_bwd.cu"}
+           "flash_bwd": "flash_bwd.cu",
+           "layer_norm": "layer_norm.cu"}
 HASH_DROPOUT = "hash_dropout"
 COUNTERS = ("git_flash_fwd", "git_flash_bwd", "git_flash_bwd_dq",
             "git_flash_bwd_dkv", HASH_DROPOUT, "flash_fwd", "flash_bwd_dq",
-            "flash_bwd_dkv")
+            "flash_bwd_dkv", "layer_norm_fwd", "layer_norm_bwd")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -67,16 +71,22 @@ _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
 
 
+def any_dtensor(*xs) -> bool:
+    """Whether any of ``xs`` is a DTensor."""
+    import torch
+    if not torch.distributed.is_available():
+        return False
+    from torch.distributed.tensor import DTensor
+    return any(isinstance(x, DTensor) for x in xs)
+
+
 def refuse_dtensor(*xs) -> None:
     """Raise on a DTensor: the kernels and their plain versions take the
     local, plain tensors of a rank (tensor parallelism hands them local
     heads); a DTensor here is a sharding bug, not a route."""
-    import torch
-    if torch.distributed.is_available():
-        from torch.distributed.tensor import DTensor
-        if any(isinstance(x, DTensor) for x in xs):
-            raise TypeError("attention kernels take plain tensors, got a "
-                            "DTensor: pass the rank's local shard")
+    if any_dtensor(*xs):
+        raise TypeError("attention kernels take plain tensors, got a "
+                        "DTensor: pass the rank's local shard")
 
 
 def count_launch(name: str) -> None:

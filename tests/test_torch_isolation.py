@@ -203,7 +203,8 @@ def test_cpu_model_never_counts_a_kernel_launch():
                                          "git_flash_bwd_dq",
                                          "git_flash_bwd_dkv",
                                          "hash_dropout", "flash_fwd",
-                                         "flash_bwd_dq", "flash_bwd_dkv"}
+                                         "flash_bwd_dq", "flash_bwd_dkv",
+                                         "layer_norm_fwd", "layer_norm_bwd"}
     assert not any(_build.launch_counts.values()), _build.launch_counts
 
 
