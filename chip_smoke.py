@@ -146,8 +146,8 @@ from sasvqa_torch.ops.git_flash import (git_flash_attention,
 from sasvqa_torch.tasks import run_video_qa
 from sasvqa_torch.tasks.serve import QAEngine
 from sasvqa_torch.tools.bwd_yardstick import (LEAD_FILLS, MARK, MARK_CYCLES,
-                                              PROFILER_STATS, device_window,
-                                              sdpa_backward)
+                                              PROFILER_STATS, cuda_ms,
+                                              device_window, sdpa_backward)
 from sasvqa_torch.tools.hf_checkpoint import (check_loaded, hf_clip_shapes,
                                               hf_git_shapes,
                                               write_hf_checkpoint)
@@ -246,21 +246,6 @@ def check(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
-def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
-    """Mean device time of ``fn`` over ``reps`` calls, by CUDA events."""
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def device_ms(fn, reps: int, kernel: str = "flash_fwd_sm90") -> float:
     """Mean device time per call of ``fn`` of the CUDA kernels whose name
     holds ``kernel``, from ``torch.profiler`` (``device_window``): the
@@ -277,11 +262,10 @@ def launches_made():
             for name, n in _build.launch_counts.items()}
 
 
-# a device record of K1/K2/K3/K5/K6: (kernel, mask kind, dropout, K2's
-# products); the mask kind kGitMask (2) is the GIT kernels'
+# a device record of K1/K2/K3/K5/K6: (kernel, mask kind, dropout); the
+# mask kind kGitMask (2) is the GIT kernels'
 _PORT_KERNEL = re.compile(r"(flash_fwd|flash_bwd_fused|flash_bwd_dq|"
-                          r"flash_bwd_dkv)_sm90_kernel<(\d+), (true|false)"
-                          r"(?:, (true|false))?>")
+                          r"flash_bwd_dkv)_sm90_kernel<(\d+), (true|false)>")
 ROWSUM = "rowsum_product"
 
 
@@ -332,7 +316,7 @@ def traced_launches(fn, tries=3):
             counts[ln] += 1
             continue
         m = _PORT_KERNEL.search(e.name)
-        if m is None or m.group(4) == "false":  # K2's reduction instrument
+        if m is None:
             continue
         base, git = m.group(1), m.group(2) == "2"
         name = {"flash_fwd": "flash_fwd", "flash_bwd_fused": "flash_bwd",
@@ -658,8 +642,6 @@ def phase_train_kernels(shapes, rate):
             bwd["bound_ms"], bwd["bound_by"] = git_flash_bwd_bound(
                 num_img, mask, h, dh)
             bwd["bound_share_device"] = bwd["bound_ms"] / bwd["device_ms"]
-            bwd["reduce_only_device_ms"] = device_window(
-                lambda: gf._launch_bwd_reduce_only(*args), reps=10)[0]
             bwd.update(repeat)
             if r == 0.0:
                 # at rate 0: SDPA's dropout draws a mask of its own
@@ -1699,7 +1681,7 @@ SPLIT_SHAPES = {"ragged_3f": (2, 12, 3 * 197, 13, 2),
                 "git_base_16f": (8, 12, 16 * 197, 32, 2),
                 "vitl16": (8, 12, 16 * 257, 32, 2)}
 # the main paths' shapes (GIT-base training, the vitl16 task loop): only
-# these take the profiler windows of K2's reduction alone and of K1
+# these take the profiler window of K1
 SPLIT_MAIN = ("flagship", "vitl16")
 # GIT with ViT-L/14 (git-large presets: 24 x 1024 vision, 6 x 768 text,
 # vocab 30522), 16 frames of 224x224, text length 32: S = 16*257 + 32
@@ -1741,7 +1723,7 @@ def phase_split_kernels(rate):
     vs K2, and K1 and K2 vs their own (fused) plain versions, at each
     SPLIT_SHAPES entry and rates 0 and ``rate``, with K3's gradients and K2's dK/dV
     bit-identical across two launches; K3, K2, plain and SDPA times and
-    the bounds, and at the SPLIT_MAIN shapes K2's reduction alone and K1.
+    the bounds, and K1's device time at the SPLIT_MAIN shapes.
     Returns the rows and the crossover in S per rate, a measurement
     reported beside the route ``FUSED_BWD``."""
     rows = []
@@ -1834,8 +1816,6 @@ def phase_split_kernels(rate):
             row["k2_bound_share_device"] = bound[0] / row["k2_device_ms"]
             row["k2"] = k2_rep
             if name in SPLIT_MAIN:
-                row["k2_reduce_only_device_ms"] = device_window(
-                    lambda: gf._launch_bwd_reduce_only(*args), reps=5)[0]
                 # K1 at this rate, for the dropout hash's cost (K4)
                 row["fwd_device_ms"], _ = device_window(
                     lambda: git_flash_attention(q, k, v, mask, num_img, r,
@@ -4263,8 +4243,6 @@ def main() -> int:
         "ms_rate0": bwd0["kernel_ms"], "device_ms_rate0": bwd0["device_ms"],
         "bound_share_device_rate0": bwd0["bound_share_device"],
         "plain_ms_rate0": bwd0["plain_ms"],
-        "reduce_only_device_ms": bwd["reduce_only_device_ms"],
-        "reduce_only_device_ms_rate0": bwd0["reduce_only_device_ms"],
         "dkv_bit_identical": all(r["dkv_bit_identical"] for r in
                                  [t[f"bwd_{x}"] for t in train_rows
                                   for x in (0.0, rate)]
@@ -4278,9 +4256,6 @@ def main() -> int:
                        k2_v16_0["k2_max_abs_err_vs_plain"],
                    "device_ms": k2_v16["k2_device_ms"],
                    "device_ms_rate0": k2_v16_0["k2_device_ms"],
-                   "reduce_only_device_ms": k2_v16["k2_reduce_only_device_ms"],
-                   "reduce_only_device_ms_rate0":
-                       k2_v16_0["k2_reduce_only_device_ms"],
                    "bound_ms": k2_v16["bound_ms"],
                    "bound_share_device": k2_v16["k2_bound_share_device"],
                    "bound_share_device_rate0":

@@ -15,11 +15,9 @@ launches that ran the in-kernel dropout hash (``rate`` > 0): K1, K2, and
 each of K3's two kernels.  The libraries ``git_flash_bwd_split`` (K3)
 and ``flash_bwd`` (K6) hold two kernels each, counted apart as
 ``git_flash_bwd_dq``/``git_flash_bwd_dkv`` and
-``flash_bwd_dq``/``flash_bwd_dkv``; ``git_flash_bwd`` (K2) also holds
-its reduction-only instrument, which no counter counts.  ``layer_norm``
-holds the LayerNorm forward (``layer_norm_fwd``) and backward
-(``layer_norm_bwd``: the row kernel and its column pass, one count a
-call).
+``flash_bwd_dq``/``flash_bwd_dkv``.  ``layer_norm`` holds the LayerNorm
+forward (``layer_norm_fwd``) and backward (``layer_norm_bwd``: the row
+kernel and its column pass, one count a call).
 
 A replay of a captured CUDA graph runs the launches its capture recorded
 without calling the wrappers: :func:`capturing` takes back the counts

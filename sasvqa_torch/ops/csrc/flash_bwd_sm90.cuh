@@ -756,10 +756,7 @@ __device__ __forceinline__ void fused_load_tile(const BwdParams& p, int it,
   }
 }
 
-// PRODUCTS false compiles the products and the elementwise work out and
-// reduces a zero tile in their place: the ring, the staging and the dQ
-// reductions alone, to measure what the reduction costs
-template <int MASK, bool DROPOUT, bool PRODUCTS>
+template <int MASK, bool DROPOUT>
 __global__ void __maxnreg__(FUSED_MAX_REGS)
 flash_bwd_fused_sm90_kernel(const __grid_constant__ BwdParams p) {
   extern __shared__ uint8_t smem_raw[];
@@ -857,59 +854,55 @@ flash_bwd_fused_sm90_kernel(const __grid_constant__ BwdParams p) {
     const uint32_t sds_prev = sds0 + ((it + 1) % 2) * 2 * TILE_BYTES;
     if (it == n_tiles) {  // the last tile's dQ
       if (dq_turn) {
-        if (PRODUCTS) {
-          wg_fence();
-          issue_dq_fused(dq_acc, sds_prev, sk);
-          wg_commit();
-          wg_wait<0>();
-          pin(dq_acc);
-        }
-        reduce_dq(p, sdq, dq_acc, q0 - BWD_BM, h, b, wg, wl, lane);
-      }
-      break;
-    }
-    mbar_wait(full0 + 8 * st, (it / BWD_STAGES) & 1);
-    if constexpr (PRODUCTS) {
-      const float* srow = srows + st * 2 * BWD_BM;
-      const uint32_t sq = sq0 + st * TILE_BYTES;
-      const uint32_t sdo = sdo0 + st * TILE_BYTES;
-      float s[32], dp[32];
-      pin(dk_acc);
-      pin(dv_acc);
-      wg_fence();
-      issue_ss(s, sk_w, sq);  // S^T = K Q^T
-      wg_commit();
-      issue_ss(dp, sv_w, sdo);  // dP^T = V dO^T
-      wg_commit();
-      wg_wait<1>();
-      pin(s);
-      const uint32_t keep =
-          dkv_probs<MASK, DROPOUT, 32, true>(s, p, x, masked, q0, srow);
-      wg_wait<0>();
-      pin(dp);
-      dkv_grads<DROPOUT>(s, dp, p, x, keep, srow + BWD_BM);
-      uint32_t pa[4][4], dsa[4][4];
-      pack_a(pa, s);
-      pack_a(dsa, dp);
-      store_ds_tile(sds0 + (it % 2) * 2 * TILE_BYTES + wg * TILE_BYTES, dsa,
-                    wl, lane);
-      fence_proxy_async();
-      wg_fence();
-      issue_rs(dv_acc, pa, sdo);  // dV += (P^T keep) dO
-      issue_rs(dk_acc, dsa, sq);  // dK += dS^T Q
-      wg_commit();
-      wg_wait<0>();
-      pin(dk_acc);
-      pin(dv_acc);
-      if (dq_turn) {
         wg_fence();
         issue_dq_fused(dq_acc, sds_prev, sk);
         wg_commit();
         wg_wait<0>();
         pin(dq_acc);
+        reduce_dq(p, sdq, dq_acc, q0 - BWD_BM, h, b, wg, wl, lane);
       }
+      break;
     }
-    if (dq_turn) reduce_dq(p, sdq, dq_acc, q0 - BWD_BM, h, b, wg, wl, lane);
+    mbar_wait(full0 + 8 * st, (it / BWD_STAGES) & 1);
+    const float* srow = srows + st * 2 * BWD_BM;
+    const uint32_t sq = sq0 + st * TILE_BYTES;
+    const uint32_t sdo = sdo0 + st * TILE_BYTES;
+    float s[32], dp[32];
+    pin(dk_acc);
+    pin(dv_acc);
+    wg_fence();
+    issue_ss(s, sk_w, sq);  // S^T = K Q^T
+    wg_commit();
+    issue_ss(dp, sv_w, sdo);  // dP^T = V dO^T
+    wg_commit();
+    wg_wait<1>();
+    pin(s);
+    const uint32_t keep =
+        dkv_probs<MASK, DROPOUT, 32, true>(s, p, x, masked, q0, srow);
+    wg_wait<0>();
+    pin(dp);
+    dkv_grads<DROPOUT>(s, dp, p, x, keep, srow + BWD_BM);
+    uint32_t pa[4][4], dsa[4][4];
+    pack_a(pa, s);
+    pack_a(dsa, dp);
+    store_ds_tile(sds0 + (it % 2) * 2 * TILE_BYTES + wg * TILE_BYTES, dsa,
+                  wl, lane);
+    fence_proxy_async();
+    wg_fence();
+    issue_rs(dv_acc, pa, sdo);  // dV += (P^T keep) dO
+    issue_rs(dk_acc, dsa, sq);  // dK += dS^T Q
+    wg_commit();
+    wg_wait<0>();
+    pin(dk_acc);
+    pin(dv_acc);
+    if (dq_turn) {
+      wg_fence();
+      issue_dq_fused(dq_acc, sds_prev, sk);
+      wg_commit();
+      wg_wait<0>();
+      pin(dq_acc);
+      reduce_dq(p, sdq, dq_acc, q0 - BWD_BM, h, b, wg, wl, lane);
+    }
     // both halves of this tile's dS^T are stored, and neither warpgroup
     // reads its stage again
     named_sync(1, FUSED_THREADS);
@@ -982,7 +975,7 @@ int launch_flash_bwd(BwdParams& p, const void* q, const void* k,
 // The fused program: as launch_flash_bwd, with the map of the f32 dQ
 // workspace `dq` (element strides dq_st: sb, sh, ss), which must hold
 // zeros (or a sum to add to)
-template <int MASK, bool DROPOUT, bool PRODUCTS>
+template <int MASK, bool DROPOUT>
 int launch_flash_bwd_fused(BwdParams& p, const void* q, const void* k,
                            const void* v, const void* dout, void* dq, int B,
                            const long long (&st)[12],
@@ -995,7 +988,7 @@ int launch_flash_bwd_fused(BwdParams& p, const void* q, const void* k,
   if (err) return err;
   const dim3 grid((p.Lk + FUSED_BN - 1) / FUSED_BN, B * p.H);
   return launch_bwd_kernel(
-      flash_bwd_fused_sm90_kernel<MASK, DROPOUT, PRODUCTS>, p, grid,
+      flash_bwd_fused_sm90_kernel<MASK, DROPOUT>, p, grid,
       FUSED_THREADS, FUSED_SMEM_BYTES, stream);
 }
 

@@ -35,47 +35,6 @@
 
 #include "flash_bwd_sm90.cuh"
 
-namespace {
-
-template <bool PRODUCTS>
-int launch_git_fused(const void* q, const void* k, const void* v,
-                     const void* o, const void* dout, const void* lse,
-                     const void* text_mask, const void* seed, void* dq,
-                     void* dk, void* dv, void* delta, int B, int H, int S,
-                     int num_img, int L, long long q_sb, long long q_sh,
-                     long long q_ss, long long k_sb, long long k_sh,
-                     long long k_ss, long long v_sb, long long v_sh,
-                     long long v_ss, long long o_sb, long long o_sh,
-                     long long o_ss, long long do_sb, long long do_sh,
-                     long long do_ss, long long dq_sb, long long dq_sh,
-                     long long dq_ss, long long dk_sb, long long dk_sh,
-                     long long dk_ss, long long dv_sb, long long dv_sh,
-                     long long dv_ss, float scale, unsigned int thresh,
-                     float inv_keep, void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int err = launch_rowsum_product(o, dout, delta, B, H, S, o_sb, o_sh,
-                                        o_ss, do_sb, do_sh, do_ss, st);
-  if (err) return err;
-  BwdParams p = git_params(lse, delta, text_mask, seed, H, S, num_img, L,
-                           scale, 1.f, scale, thresh, inv_keep);
-  p.dk = static_cast<__nv_bfloat16*>(dk);
-  p.dk_sb = dk_sb;
-  p.dk_sh = dk_sh;
-  p.dk_ss = dk_ss;
-  p.dv = static_cast<__nv_bfloat16*>(dv);
-  p.dv_sb = dv_sb;
-  p.dv_sh = dv_sh;
-  p.dv_ss = dv_ss;
-  const long long strides[12] = {q_sb, q_sh, q_ss, k_sb, k_sh, k_ss,
-                                 v_sb, v_sh, v_ss, do_sb, do_sh, do_ss};
-  const long long dq_strides[3] = {dq_sb, dq_sh, dq_ss};
-  auto launch = thresh ? launch_flash_bwd_fused<kGitMask, true, PRODUCTS>
-                       : launch_flash_bwd_fused<kGitMask, false, PRODUCTS>;
-  return launch(p, q, k, v, dout, dq, B, strides, dq_strides, st);
-}
-
-}  // namespace
-
 extern "C" {
 
 // Launches the D prologue and the fused backward on `stream`; returns 0, a
@@ -99,34 +58,26 @@ int git_flash_bwd(const void* q, const void* k, const void* v, const void* o,
                   long long dv_sb, long long dv_sh, long long dv_ss,
                   float scale, unsigned int thresh, float inv_keep,
                   void* stream) {
-  return launch_git_fused<true>(
-      q, k, v, o, dout, lse, text_mask, seed, dq, dk, dv, delta, B, H, S,
-      num_img, L, q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb,
-      o_sh, o_ss, do_sb, do_sh, do_ss, dq_sb, dq_sh, dq_ss, dk_sb, dk_sh,
-      dk_ss, dv_sb, dv_sh, dv_ss, scale, thresh, inv_keep, stream);
-}
-
-// The same launch with the products and elementwise work compiled out: the
-// ring, the dQ staging and the reductions of zero tiles only (dk and dv are
-// written with zeros).  A measurement of the reduction's cost, not a
-// backward.
-int git_flash_bwd_reduce_only(
-    const void* q, const void* k, const void* v, const void* o,
-    const void* dout, const void* lse, const void* text_mask,
-    const void* seed, void* dq, void* dk, void* dv, void* delta, int B,
-    int H, int S, int num_img, int L, long long q_sb, long long q_sh,
-    long long q_ss, long long k_sb, long long k_sh, long long k_ss,
-    long long v_sb, long long v_sh, long long v_ss, long long o_sb,
-    long long o_sh, long long o_ss, long long do_sb, long long do_sh,
-    long long do_ss, long long dq_sb, long long dq_sh, long long dq_ss,
-    long long dk_sb, long long dk_sh, long long dk_ss, long long dv_sb,
-    long long dv_sh, long long dv_ss, float scale, unsigned int thresh,
-    float inv_keep, void* stream) {
-  return launch_git_fused<false>(
-      q, k, v, o, dout, lse, text_mask, seed, dq, dk, dv, delta, B, H, S,
-      num_img, L, q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb,
-      o_sh, o_ss, do_sb, do_sh, do_ss, dq_sb, dq_sh, dq_ss, dk_sb, dk_sh,
-      dk_ss, dv_sb, dv_sh, dv_ss, scale, thresh, inv_keep, stream);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int err = launch_rowsum_product(o, dout, delta, B, H, S, o_sb, o_sh,
+                                        o_ss, do_sb, do_sh, do_ss, st);
+  if (err) return err;
+  BwdParams p = git_params(lse, delta, text_mask, seed, H, S, num_img, L,
+                           scale, 1.f, scale, thresh, inv_keep);
+  p.dk = static_cast<__nv_bfloat16*>(dk);
+  p.dk_sb = dk_sb;
+  p.dk_sh = dk_sh;
+  p.dk_ss = dk_ss;
+  p.dv = static_cast<__nv_bfloat16*>(dv);
+  p.dv_sb = dv_sb;
+  p.dv_sh = dv_sh;
+  p.dv_ss = dv_ss;
+  const long long strides[12] = {q_sb, q_sh, q_ss, k_sb, k_sh, k_ss,
+                                 v_sb, v_sh, v_ss, do_sb, do_sh, do_ss};
+  const long long dq_strides[3] = {dq_sb, dq_sh, dq_ss};
+  auto launch = thresh ? launch_flash_bwd_fused<kGitMask, true>
+                       : launch_flash_bwd_fused<kGitMask, false>;
+  return launch(p, q, k, v, dout, dq, B, strides, dq_strides, st);
 }
 
 }  // extern "C"

@@ -41,7 +41,6 @@ from sasvqa_torch.ops.attention import NEG_INF
 
 KERNEL = "git_flash_fwd"
 KERNEL_BWD = "git_flash_bwd"
-KERNEL_BWD_REDUCE = "git_flash_bwd_reduce_only"
 KERNEL_SPLIT = "git_flash_bwd_split"
 COUNT_DQ, COUNT_DKV = "git_flash_bwd_dq", "git_flash_bwd_dkv"
 HEAD_DIM = 64
@@ -305,7 +304,6 @@ def _kernel_fn(name: str):
     fn = _fns.get(name)
     if fn is None:
         lib = _build.load(KERNEL_SPLIT if name in (COUNT_DQ, COUNT_DKV)
-                          else KERNEL_BWD if name == KERNEL_BWD_REDUCE
                           else name)
         if name == KERNEL:
             fn = lib.git_flash_fwd
@@ -314,8 +312,8 @@ def _kernel_fn(name: str):
                            + [ctypes.c_float, ctypes.c_void_p,
                               ctypes.c_uint32, ctypes.c_float,
                               ctypes.c_void_p])
-        elif name in (KERNEL_BWD, KERNEL_BWD_REDUCE):
-            fn = getattr(lib, name)
+        elif name == KERNEL_BWD:
+            fn = lib.git_flash_bwd
             fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 5
                            + [ctypes.c_longlong] * 24
                            + [ctypes.c_float, ctypes.c_uint32,
@@ -389,10 +387,12 @@ def _check_bwd(q, k, v, o, lse, do, attention_mask, num_img):
                          "f32 LSE")
 
 
-def _run_fused(entry, q, k, v, o, lse, do, attention_mask, num_img, rate,
-               seed):
-    """Launches the fused program's C entry ``entry`` on CUDA tensors and
-    returns (the f32 dQ workspace, dK, dV)."""
+def _launch_bwd(q, k, v, o, lse, do, attention_mask, num_img, rate=0.0,
+                seed=None):
+    """K2 (with K4 inside when ``rate`` > 0) on CUDA tensors: returns
+    (dQ, dK, dV) in bf16.  dQ is summed over 128 keys at a time into a
+    zeroed f32 workspace by TMA reductions and cast afterwards; the fill
+    and the cast are part of K2's time."""
     _check_bwd(q, k, v, o, lse, do, attention_mask, num_img)
     b, h, s, dh = q.shape
     q, k, v, do = (_build.tma_ready(x) for x in (q, k, v, do))
@@ -412,7 +412,7 @@ def _run_fused(entry, q, k, v, o, lse, do, attention_mask, num_img, rate,
     strides = [st for x in (q, k, v, o, do, dq_acc, dk, dv)
                for st in x.stride()[:3]]
     with torch.cuda.device(q.device):
-        err = _kernel_fn(entry)(
+        err = _kernel_fn(KERNEL_BWD)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             do.data_ptr(), lse.data_ptr(), text_mask.data_ptr(),
             seed_t.data_ptr(), dq_acc.data_ptr(), dk.data_ptr(),
@@ -420,32 +420,10 @@ def _run_fused(entry, q, k, v, o, lse, do, attention_mask, num_img, rate,
             attention_mask.shape[1], *strides, dh ** -0.5, thresh,
             inv_keep, stream)
     _build.raise_on_error(KERNEL_BWD, err)
-    return dq_acc, dk, dv
-
-
-def _launch_bwd(q, k, v, o, lse, do, attention_mask, num_img, rate=0.0,
-                seed=None):
-    """K2 (with K4 inside when ``rate`` > 0) on CUDA tensors: returns
-    (dQ, dK, dV) in bf16.  dQ is summed over 128 keys at a time into a
-    zeroed f32 workspace by TMA reductions and cast afterwards; the fill
-    and the cast are part of K2's time."""
-    dq_acc, dk, dv = _run_fused(KERNEL_BWD, q, k, v, o, lse, do,
-                                attention_mask, num_img, rate, seed)
     _build.count_launch(KERNEL_BWD)
     if rate > 0.0:
         _build.count_launch(_build.HASH_DROPOUT)
     return dq_acc.to(q.dtype), dk, dv
-
-
-def _launch_bwd_reduce_only(q, k, v, o, lse, do, attention_mask, num_img,
-                            rate=0.0, seed=None):
-    """K2's launch with its products and elementwise work compiled out:
-    the D prologue, the ring, the dQ staging and the reductions of zero
-    tiles (``git_flash_bwd_reduce_only``), at K2's grid and tile plan.  A
-    measurement of what the dQ reduction costs, counted nowhere; returns
-    the f32 workspace."""
-    return _run_fused(KERNEL_BWD_REDUCE, q, k, v, o, lse, do,
-                      attention_mask, num_img, rate, seed)[0]
 
 
 def _launch_bwd_dq(q, k, v, o, lse, do, attention_mask, num_img, rate=0.0,

@@ -1,49 +1,24 @@
-"""The attention backward kernels (K2, K3, K6) against PyTorch's own
-backward, by device time.
+"""Device timers for the attention kernels on the card, and PyTorch's own
+attention backward as their yardstick.
 
-    python3 -m sasvqa_torch.tools.bwd_yardstick [--reps N]
+- :func:`cuda_ms`: mean time of a call by CUDA events;
+- :func:`device_window`: device time per call of every CUDA kernel, copy
+  and fill a call runs, from ``torch.profiler``, total and by name;
+- :func:`sdpa_backward`: ``scaled_dot_product_attention``'s backward on
+  given inputs, as forward + backward minus forward, with the names of
+  the kernels each window ran (they say which SDPA backend took it).
 
-At the main paths' shapes (bf16, Dh = 64, seeded random inputs):
-
-- K2, the fused GIT-mask backward, and K3, the split one, at the GIT-base
-  training shape (B=16, H=12, S=1608, num_img=1576) and the ViT-L/14
-  16-frame shape (B=8, H=12, S=4144, num_img=4112), rates 0 and 0.1,
-  with K2's launch with its products compiled out (the D prologue, the
-  ring and the dQ reductions alone: ``reduce_only_device_ms``);
-- K6, the generic backward, at the BLIP-base training shape
-  (B*T=32, H=12, Lq=Lk=577), no bias.
-
-Each kernel's time is the device time (``torch.profiler``) of every CUDA
-kernel its launcher runs, the D prologue included, and, beside it, CUDA
-events round the Python call.  The yardstick is
-``scaled_dot_product_attention`` with the GIT mask as a boolean mask (no
-dropout) or no mask: the device time of every kernel of a forward +
-backward window (``torch.autograd.grad``, so no gradient accumulates)
-minus that of a forward window, with the names of the kernels each window
-ran, which say which SDPA backend took the call.  Prints one JSON line a
-case and a last line with the device-time factors (kernel / SDPA
-backward) at rate 0.  Runs on whichever ``sasvqa_torch`` is on the path,
-so two trees compare in one process each.  Needs a GPU.
+``chip_smoke.py`` times K2, K3 and K6 and SDPA with these.  Needs a GPU.
 """
 
 from __future__ import annotations
 
-import argparse
-import json
-import subprocess
 import time
 from typing import Callable, Dict, Tuple
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 
-from sasvqa_torch.ops import flash_attention as fa
-from sasvqa_torch.ops import git_flash as gf
-
-GIT_TRAIN = (16, 12, 8 * 197, 32)     # (B, H, num_img, L)
-VITL16 = (8, 12, 16 * 257, 32)
-BLIP_TRAIN = (32, 12, 577)            # (B*T, H, L)
 # the card idles this long at both edges of a profiled step
 EDGE_S = 0.05
 # a profiled step's records before its counted calls: small fills, then a
@@ -154,93 +129,3 @@ def sdpa_backward(q, k, v, do, mask, reps: int) -> dict:
             "events_ms": cuda_ms(both, reps) - cuda_ms(fwd, reps),
             "fwd_bwd_kernels": both_names, "fwd_kernels": fwd_names}
 
-
-def _git_inputs(b, h, num_img, l, seed):
-    gen = torch.Generator(device="cuda").manual_seed(seed)
-    s = num_img + l
-    q, k, v, do = (torch.randn((b, h, s, 64), generator=gen, device="cuda"
-                               ).to(torch.bfloat16) for _ in range(4))
-    rng = np.random.default_rng(seed)
-    lens = rng.integers(1, l + 1, size=b)
-    lens[0] = l
-    mask = torch.from_numpy(
-        (np.arange(l)[None, :] < lens[:, None]).astype(np.int32)).cuda()
-    return q, k, v, do, mask
-
-
-def git_case(name, shape, reps):
-    """K2 and K3 at ``shape`` at rates 0 and 0.1, with K2's reduction-only
-    launch and SDPA's backward at rate 0."""
-    b, h, num_img, l = shape
-    q, k, v, do, mask = _git_inputs(b, h, num_img, l, seed=l + b)
-    seed = torch.tensor([12345], dtype=torch.int32, device="cuda")
-    rows = []
-    for rate in (0.0, 0.1):
-        o, lse = gf.git_flash_attention(q, k, v, mask, num_img, rate, seed)
-        args = (q, k, v, o, lse, do, mask, num_img, rate, seed)
-        sdpa = None
-        if rate == 0.0:
-            ok = gf.git_mask_ok(num_img, mask)[:, None]
-            sdpa = sdpa_backward(q, k, v, do, ok, reps)
-        for kernel, launch in (("K2", gf._launch_bwd),
-                               ("K3", gf._launch_bwd_split)):
-            dev, names = device_window(lambda: launch(*args), reps)
-            row = {"case": name, "kernel": kernel, "rate": rate,
-                   "shape": {"B": b, "H": h, "S": num_img + l,
-                             "num_img": num_img},
-                   "device_ms": dev, "kernels": names,
-                   "kernel_ms": cuda_ms(lambda: launch(*args), reps)}
-            if kernel == "K2":
-                row["reduce_only_device_ms"] = device_window(
-                    lambda: gf._launch_bwd_reduce_only(*args), reps)[0]
-            if sdpa is not None:
-                row["sdpa"] = sdpa
-                row["factor"] = dev / sdpa["device_ms"]
-            rows.append(row)
-        del o, lse
-    return rows
-
-
-def blip_case(reps):
-    bt, h, n = BLIP_TRAIN
-    gen = torch.Generator(device="cuda").manual_seed(n)
-    q, k, v, do = (torch.randn((bt, h, n, 64), generator=gen, device="cuda"
-                               ).to(torch.bfloat16) for _ in range(4))
-    o, lse = fa.flash_forward(q, k, v)
-
-    def k6():
-        dq, delta = fa._launch_dq(q, k, v, o, lse, do, None)
-        return dq, fa._launch_dkv(q, k, v, o, lse, do, None, delta)
-
-    dev, names = device_window(k6, reps)
-    row = {"case": "blip_train", "kernel": "K6", "rate": 0.0,
-           "shape": {"B": bt, "H": h, "Lq": n, "Lk": n}, "device_ms": dev,
-           "kernels": names, "kernel_ms": cuda_ms(k6, reps),
-           "sdpa": sdpa_backward(q, k, v, do, None, reps)}
-    row["factor"] = dev / row["sdpa"]["device_ms"]
-    return [row]
-
-
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--reps", type=int, default=10)
-    args = ap.parse_args(argv)
-    if not torch.cuda.is_available():
-        raise SystemExit("bwd_yardstick needs a GPU")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
-    rows = (git_case("git_train", GIT_TRAIN, args.reps)
-            + git_case("vitl16", VITL16, args.reps) + blip_case(args.reps))
-    for row in rows:
-        print(json.dumps(dict(row, card=card)), flush=True)
-    print(json.dumps({"factors": {f"{r['kernel']} {r['case']}": r["factor"]
-                                  for r in rows if "factor" in r},
-                      "card": card}), flush=True)
-    return 0
-
-
-if __name__ == "__main__":
-    raise SystemExit(main())

@@ -842,17 +842,6 @@ def test_k2_dkv_bits_repeat_and_dq_stays_close(cuda, rate):
         <= TOL_GRAD_REL * scale
 
 
-def test_k2_reduce_only_touches_only_the_workspace(cuda):
-    """The reduction-only instrument adds zero tiles: its f32 workspace
-    comes back zero, and it counts no launch."""
-    gf, args = _fused_args(cuda, 1, 2, 200, 9, 0.1)
-    _build.reset_launch_counts()
-    ws = gf._launch_bwd_reduce_only(*args)
-    torch.cuda.synchronize()
-    assert not any(_build.launch_counts.values())
-    assert ws.dtype == torch.float32 and not ws.any()
-
-
 def test_k2_launcher_raises_on_what_it_cannot_take(cuda):
     """K2's launcher takes bf16 (B, H, S, 64) tensors on the GPU with a
     contiguous f32 (B, H, S) LSE and a fitting mask; anything else
